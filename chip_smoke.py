@@ -8,19 +8,34 @@ Phases, one line each:
    limit as nvidia-smi gives them;
 2. build   — builds both LDPC kernels from ``csrc/`` (nvcc, sm_90a);
 3. encoder — kernel vs ``encode_plain`` on the card, bit for bit, at the
-   flagship shape (BG2 Z=384, 88 codeblocks), BG1 Z=384, the tiny
-   carrier's Z=36 and a batch that is not a multiple of 8;
+   flagship shape (BG2 Z=384, 88 codeblocks), at the mixed slot's four
+   shapes (BG1 Z=384 x128, x56, x136; BG1 Z=352 x64), the tiny carrier's
+   Z=36 and a batch that is not a multiple of 8;
 4. decoder — kernel vs ``decode_plain`` on the card, bits and ok
-   identical, at the flagship shape converging and with mixed convergence,
-   on truncated graphs, at Z=36; an oversized state must be refused;
+   identical, at the flagship shape and the mixed slot's two shapes (BG1
+   Z=384 n_used 35 x136, BG1 Z=352 n_used 36 x64), each converging and with
+   mixed convergence, on truncated graphs, at Z=36; an oversized state must
+   be refused;
 5. slice   — ``SlotPipeline`` on the 273-PRB flagship carrier, 8 slots per
    batch, depth 2, 20 dB: warmup + submits + drain; every TB CRC ok, mean
    SINR within 1.5 dB of 20, both kernels launched in that run; decoded bits
    equal the sent bits; a small slot on the card agrees with the same slot
    through the plain versions on the CPU; kernel and plain times at the
    flagship shapes;
-6. profile — torch.profiler over two pipeline batches: device busy share,
-   the top kernels, each LDPC kernel's device time per launch.
+6. profile — torch.profiler over two flagship batches: device busy share,
+   the top kernels, each LDPC kernel's device time per launch;
+7. mixed   — the 273-PRB mixed slot (2×PDSCH with 2-layer MIMO, PDCCH, SSB,
+   CSI-RS, 2×PUSCH, PUCCH F1, PRACH) through ``SlotPipeline`` with
+   ``gnb_mixed.batch_fn_for_pipeline``, 8 slots per batch, depth 2, 20 dB:
+   warmup + submits + drain; every slot ok, mean UL SINR within 1.0 dB of
+   20, 4 encoder and 2 decoder launches per batch; how many slots passed
+   each check; the wall time of each stage of a batch; kernel and plain
+   times at the mixed shapes;
+8. mixed-cpu — a ``tiny_mixed`` batch of 2 on the card against the same
+   payloads and noise through the plain versions on the CPU: every verdict
+   and the decoded bits equal, SINRs within 0.1 dB;
+9. mixed-profile — torch.profiler over two mixed batches, and over the
+   once-per-batch DCI re-check alone (its device op count).
 
 Then one JSON line with the kernels and, last, the result line.  Any
 failure raises and exits non-zero.
@@ -37,7 +52,7 @@ import time
 import numpy as np
 import torch
 
-from srsran_project_23_5_tpu_torch.models import gnb_flagship
+from srsran_project_23_5_tpu_torch.models import gnb_flagship, gnb_mixed
 from srsran_project_23_5_tpu_torch.ops.ldpc import (decoder_cuda,
                                                     encoder_cuda, graphs,
                                                     segmentation)
@@ -49,6 +64,12 @@ from srsran_project_23_5_tpu_torch.utils import kernels
 FLAGSHIP_CBS = 88          # 8 slots x 11 codeblocks
 SLICE_BATCH = 8
 SLICE_SUBMITS = 8
+MIXED_SUBMITS = 4
+# the mixed slot's codeblocks per batch of SLICE_BATCH slots: encoder
+# (bg, z, rows) of pdsch0, pdsch1, pusch0, pusch1; decoder (bg, z, rows,
+# n_used) of pusch0, pusch1
+MIXED_ENC = [(1, 384, 128), (1, 384, 56), (1, 384, 136), (1, 352, 64)]
+MIXED_DEC = [(1, 384, 136, 35), (1, 352, 64, 36)]
 
 
 def _check(cond: bool, what: str) -> None:
@@ -123,7 +144,8 @@ def phase_build(card: str) -> dict:
 def phase_encoder(dev, card: str) -> float:
     gen = torch.Generator(device=dev).manual_seed(1)
     max_err = 0
-    cases = [(2, 384, FLAGSHIP_CBS), (1, 384, 24), (2, 36, 16), (2, 384, 13)]
+    cases = [(2, 384, FLAGSHIP_CBS), *MIXED_ENC, (1, 384, 24), (2, 36, 16),
+             (2, 384, 13)]
     for bg, zc, batch in cases:
         k = graphs.lifted_graph(bg, zc).nof_msg_blocks * zc
         msg = torch.randint(0, 2, (batch, k), generator=gen, device=dev,
@@ -148,6 +170,10 @@ def phase_decoder(dev, card: str) -> float:
         ("flagship", 2, 384, FLAGSHIP_CBS, 2.0, 52),
         ("flagship-mixed", 2, 384, FLAGSHIP_CBS,
          np.linspace(-5.0, -1.0, FLAGSHIP_CBS), 52),
+        *[(f"mixed-BG1-Z{z}{tag}", bg, z, rows, snr, n_used)
+          for bg, z, rows, n_used in MIXED_DEC
+          for tag, snr in (("", 6.0),
+                           ("-mixed", np.linspace(2.0, 6.0, rows)))],
         ("BG1-truncated", 1, 384, 24, np.linspace(1.0, 5.0, 24), 40),
         ("BG2-truncated", 2, 384, 24, np.linspace(0.0, 4.0, 24), 20),
         ("Z36", 2, 36, 13, 3.0, None),
@@ -169,11 +195,12 @@ def phase_decoder(dev, card: str) -> float:
         _check(torch.equal(ok, w_ok) and torch.equal(bits, w_bits),
                f"decoder kernel != plain for {label}")
         n_ok = int(ok.sum())
-        if label == "flagship":
+        if label in ("flagship", "mixed-BG1-Z384", "mixed-BG1-Z352"):
             _check(n_ok == batch and torch.equal(bits, msg),
-                   "flagship decode did not converge")
-        if label == "flagship-mixed":
-            _check(0 < n_ok < batch, f"no mixed convergence ({n_ok})")
+                   f"{label} decode did not converge")
+        if label.endswith("-mixed"):
+            _check(0 < n_ok < batch, f"no mixed convergence for {label} "
+                   f"({n_ok})")
         notes.append(f"{label} {n_ok}/{batch} ok")
     try:
         decoder_cuda.decode(torch.zeros((2, 68 * 384), device=dev), 1, 384)
@@ -278,7 +305,7 @@ def phase_slice(dev, card: str) -> dict:
             "dec_plain_ms": dec_plain_ms, "pipe": pipe, "tb": tb}
 
 
-def phase_profile(card: str, pipe, tb) -> None:
+def phase_profile(card: str, label: str, pipe, batch, nslots: int) -> None:
     """torch.profiler over two pipeline batches: device busy share, the
     kernels that take the device time, and each LDPC kernel's device time
     per launch on the main path's data.  The profiler's own host cost
@@ -291,7 +318,7 @@ def phase_profile(card: str, pipe, tb) -> None:
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(batches):
-            pipe.submit(tb)
+            pipe.submit(batch)
         pipe.drain()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
@@ -311,13 +338,205 @@ def phase_profile(card: str, pipe, tb) -> None:
     top = sorted(kern, key=lambda e: e.self_device_time_total, reverse=True)
     top_s = "; ".join(
         f"{e.key[:48]} {100 * e.self_device_time_total / busy_us:.1f}%"
-        for e in top[:5])
-    print(f"[profile] {batches} batches of {tb.shape[0]} slots: wall "
+        for e in top[:6])
+    print(f"[{label}] {batches} batches of {nslots} slots: wall "
           f"{wall_us:.0f} us, device busy {busy_us:.0f} us "
           f"({100 * busy_us / wall_us:.1f}%), {launches / batches:.0f} device "
           f"ops per batch; encoder kernel {per_launch('ldpc_encode_kernel')}, "
           f"decoder kernel {per_launch('ldpc_decode_kernel')}; top: {top_s} "
           f"on {card}")
+
+
+_MIXED_FLAGS = ("ok", "ul0_ok", "ul1_ok", "dl0_ok", "dl1_ok", "dci_crc_ok",
+                "pucch_ok", "prach_ok")
+
+
+def phase_mixed(dev, card: str) -> dict:
+    cfg = gnb_mixed.default_mixed()
+    pipe = pipeline.SlotPipeline(
+        pipeline.PipelineConfig(carrier=None, slots_per_batch=SLICE_BATCH,
+                                depth=2),
+        device=dev, seed=6, batch_fn=gnb_mixed.batch_fn_for_pipeline(cfg))
+    payloads = gnb_mixed.make_payloads(cfg, np.random.default_rng(6),
+                                       SLICE_BATCH, dev)
+
+    encoder_cuda.encode.launches = 0
+    decoder_cuda.decode.launches = 0
+    warm_s, ok0, sinr0 = pipe.warmup(payloads)
+    t0 = time.perf_counter()
+    for _ in range(MIXED_SUBMITS):
+        pipe.submit(payloads)
+    results = pipe.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"encoder": encoder_cuda.encode.launches,
+                "decoder": decoder_cuda.decode.launches}
+
+    batches = MIXED_SUBMITS + 1
+    oks = np.concatenate([ok0] + [ok for ok, _ in results])
+    sinrs = np.concatenate([sinr0] + [s for _, s in results])
+    _check(len(results) == MIXED_SUBMITS, "pipeline lost batches")
+    _check(bool(oks.all()), f"mixed slot failed in {int((~oks).sum())} slots")
+    _check(bool(np.isfinite(sinrs).all())
+           and abs(float(sinrs.mean()) - 20.0) < 1.0,
+           f"mean UL SINR {float(sinrs.mean())} dB not within 1.0 dB of 20")
+    _check(launches == {"encoder": 4 * batches, "decoder": 2 * batches},
+           f"expected 4 encoder and 2 decoder launches per batch over "
+           f"{batches} batches, got {launches}")
+    us_per_slot = wall / (MIXED_SUBMITS * SLICE_BATCH) * 1e6
+
+    # how many slots pass each check (two more batches of the same function)
+    counts = dict.fromkeys(_MIXED_FLAGS, 0)
+    for _ in range(2):
+        res = gnb_mixed.mixed_slot_batch(
+            payloads, *gnb_mixed.draw_noise(cfg, SLICE_BATCH, pipe.generator),
+            cfg)
+        for f in _MIXED_FLAGS:
+            counts[f] += int(getattr(res, f).sum())
+    _check(all(n == 2 * SLICE_BATCH for n in counts.values()),
+           f"mixed-slot checks failed: {counts}")
+
+    # wall time of each stage of a batch, synchronised between stages
+    def stages() -> list[float]:
+        marks = [time.perf_counter()]
+        noise = gnb_mixed.draw_noise(cfg, SLICE_BATCH, pipe.generator)
+        front = gnb_mixed._mixed_front(payloads, *noise, cfg)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        front["dci_crc_ok"] = gnb_mixed._dci_recheck(
+            front["pdcch_llr"][0], payloads["dci_dl"][0], cfg
+        ).expand(SLICE_BATCH)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        dec = gnb_mixed.decode_uplink(front, cfg)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        res = gnb_mixed._mixed_back(front, payloads, cfg, dec)
+        _check(bool(res.ok.all()), "mixed slot failed in the stage split")
+        marks.append(time.perf_counter())
+        return list(np.diff(marks) * 1e3)
+
+    torch.cuda.synchronize()
+    split = np.median([stages() for _ in range(5)], axis=0)
+    split_s = ", ".join(f"{name} {ms:.2f}" for name, ms in zip(
+        ("front", "DCI re-check", "decode", "back"), split))
+
+    # kernel and plain times at the mixed shapes, on the main path's data
+    noise = gnb_mixed.draw_noise(cfg, SLICE_BATCH, pipe.generator)
+    front = gnb_mixed._mixed_front(payloads, *noise, cfg)
+    times = []
+    for key, sh in (("tb_dl0", cfg.pdsch0), ("tb_dl1", cfg.pdsch1),
+                    ("tb_ul0", cfg.pusch0), ("tb_ul1", cfg.pusch1)):
+        seg = sh.segments
+        bg, zc = seg.base_graph, seg.lifting_size
+        cbs = segmentation.segment_tx(payloads[key], seg).reshape(
+            -1, seg.segment_length)
+        times.append(("encoder", f"BG{bg} Z={zc} x{cbs.shape[0]}",
+                      _time_ms(lambda: encoder_cuda.encode(cbs, bg, zc), 200),
+                      _time_ms(lambda: encoder_cuda.encode_plain(cbs, bg, zc),
+                               3)))
+    for name, sh in (("u0", cfg.pusch0), ("u1", cfg.pusch1)):
+        seg = sh.segments
+        bg, zc = seg.base_graph, seg.lifting_size
+        llr = front[name].llr_full.reshape(-1, front[name].llr_full.shape[-1])
+        n_used = decoder_cuda.used_blocks(bg, zc, max(sh.cb_lengths))
+        dec = lambda: decoder_cuda.decode(llr, bg, zc, nof_used_blocks=n_used)
+        dec_plain = lambda: decoder_cuda.decode_plain(llr, bg, zc,
+                                                      nof_used_blocks=n_used)
+        _check(all(torch.equal(a, b) for a, b in zip(dec(), dec_plain())),
+               f"decoder kernel != plain on the mixed slot's {name} LLRs")
+        times.append(("decoder", f"BG{bg} Z={zc} x{llr.shape[0]} "
+                                 f"n_used {n_used}",
+                      _time_ms(dec, 200), _time_ms(dec_plain, 3)))
+    shapes = "; ".join(f"{k} {s} {ms:.4f} ms (plain {pms:.3f} ms)"
+                       for k, s, ms, pms in times)
+    print(f"[mixed] {cfg.nof_prb}-PRB mixed slot x{MIXED_SUBMITS} batches of "
+          f"{SLICE_BATCH} slots (warmup {warm_s:.2f} s): {us_per_slot:.1f} "
+          f"us/slot, all {oks.size} slots ok, mean UL SINR "
+          f"{float(sinrs.mean()):.2f} dB, launches {launches}; slots passing "
+          f"each check (of {2 * SLICE_BATCH}): {counts}; stage wall ms per "
+          f"batch (median of 5): {split_s}; {shapes} on {card}")
+    return {"launches": launches, "times": times, "pipe": pipe,
+            "payloads": payloads, "cfg": cfg}
+
+
+def phase_mixed_cpu(dev, card: str) -> None:
+    """A tiny_mixed batch of 2 on the card against the same payloads and
+    noise through the plain versions on the CPU."""
+    cfg = gnb_mixed.tiny_mixed()
+    rng = np.random.default_rng(7)
+    pay = gnb_mixed.make_payloads(cfg, rng, 2)
+    noise = gnb_mixed.draw_noise(cfg, 2, torch.Generator().manual_seed(7))
+    out = {}
+    for where in ("cpu", dev):
+        p = {k: v.to(where) for k, v in pay.items()}
+        nz = [n.to(where) for n in noise]
+        res = gnb_mixed.mixed_slot_batch(p, *nz, cfg)
+        dec = gnb_mixed.decode_uplink(gnb_mixed._mixed_front(p, *nz, cfg),
+                                      cfg)
+        out[str(where)] = (res, {k: [t.cpu() for t in v]
+                                 for k, v in dec.items()})
+    (r_c, d_c), (r_g, d_g) = out["cpu"], out[str(dev)]
+    _check(bool(r_c.ok.all()), "tiny mixed slot failed on the CPU")
+    for f in _MIXED_FLAGS:
+        _check(torch.equal(getattr(r_g, f).cpu(), getattr(r_c, f)),
+               f"card and CPU disagree on {f}")
+    for k in d_c:
+        _check(all(torch.equal(a, b) for a, b in zip(d_g[k], d_c[k])),
+               f"card and CPU decode different bits for {k}")
+    diff = max(float((getattr(r_g, f).cpu() - getattr(r_c, f)).abs().max())
+               for f in ("sinr_ul_db", "sinr_ul0_db", "sinr_ul1_db",
+                         "sinr_dl0_db", "csi_sinr_db"))
+    _check(diff < 0.1, f"card and CPU SINRs differ by {diff} dB")
+    print(f"[mixed-cpu] tiny_mixed x2 on the card equals the plain CPU path: "
+          f"{len(_MIXED_FLAGS)} verdicts and the decoded bits equal, SINRs "
+          f"within {diff:.2e} dB on {card}")
+
+
+def phase_dci_profile(card: str, cfg, pipe, payloads) -> None:
+    """The once-per-batch DCI re-check (SSC polar decode, unrolled on the
+    host into many small ops): its device ops and times, profiled alone."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    front = gnb_mixed._mixed_front(
+        payloads, *gnb_mixed.draw_noise(cfg, SLICE_BATCH, pipe.generator), cfg)
+    llr, dci = front["pdcch_llr"][0], payloads["dci_dl"][0]
+    _check(bool(gnb_mixed._dci_recheck(llr, dci, cfg)), "DCI re-check failed")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ok = gnb_mixed._dci_recheck(llr, dci, cfg)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    _check(bool(ok), "DCI re-check failed under the profiler")
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    print(f"[mixed-profile] DCI re-check once per batch (SSC polar decode "
+          f"K=64 N=512): {sum(e.count for e in kern)} device ops, "
+          f"{sum(e.self_device_time_total for e in kern):.0f} us device, "
+          f"{wall_us:.0f} us wall under the profiler on {card}")
+
+
+def _kernel_entry(name: str, kind: str, flag: dict, mixed: dict,
+                  max_err: float) -> dict:
+    """One kernels-JSON entry: launches of both main paths; times of one
+    launch at each of their shapes, added up."""
+    shapes = [(f"flagship BG2 Z=384 x{FLAGSHIP_CBS}", flag[f"{kind[:3]}_ms"],
+               flag[f"{kind[:3]}_plain_ms"])]
+    shapes += [(s, ms, pms) for k, s, ms, pms in mixed["times"] if k == kind]
+    return {"name": name, "route": "cuda",
+            "source": f"srsran_project_23_5_tpu_torch/csrc/{name}.cu",
+            "replaces": {"encoder": "srsran_project_23_5_tpu/ops/ldpc/"
+                                    "encoder_pallas.py:84",
+                         "decoder": "srsran_project_23_5_tpu/ops/ldpc/"
+                                    "decoder_pallas.py:195"}[kind],
+            "launches": flag["launches"][kind] + mixed["launches"][kind],
+            "max_abs_err": max_err,
+            "ms": sum(ms for _, ms, _ in shapes),
+            "plain_ms": sum(pms for _, _, pms in shapes),
+            "shapes": [{"shape": s, "ms": ms, "plain_ms": pms}
+                       for s, ms, pms in shapes]}
 
 
 def main() -> None:
@@ -326,19 +545,15 @@ def main() -> None:
     enc_err = phase_encoder(dev, card)
     dec_err = phase_decoder(dev, card)
     s = phase_slice(dev, card)
-    phase_profile(card, s["pipe"], s["tb"])
+    phase_profile(card, "profile", s["pipe"], s["tb"], SLICE_BATCH)
+    m = phase_mixed(dev, card)
+    phase_mixed_cpu(dev, card)
+    phase_profile(card, "mixed-profile", m["pipe"], m["payloads"],
+                  SLICE_BATCH)
+    phase_dci_profile(card, m["cfg"], m["pipe"], m["payloads"])
     print(json.dumps({"kernels": [
-        {"name": "ldpc_encoder", "route": "cuda",
-         "source": "srsran_project_23_5_tpu_torch/csrc/ldpc_encoder.cu",
-         "replaces": "srsran_project_23_5_tpu/ops/ldpc/encoder_pallas.py:84",
-         "launches": s["launches"]["encoder"], "max_abs_err": enc_err,
-         "ms": s["enc_ms"], "plain_ms": s["enc_plain_ms"]},
-        {"name": "ldpc_decoder", "route": "cuda",
-         "source": "srsran_project_23_5_tpu_torch/csrc/ldpc_decoder.cu",
-         "replaces": "srsran_project_23_5_tpu/ops/ldpc/decoder_pallas.py:195",
-         "launches": s["launches"]["decoder"], "max_abs_err": dec_err,
-         "ms": s["dec_ms"], "plain_ms": s["dec_plain_ms"]},
-    ]}))
+        _kernel_entry("ldpc_encoder", "encoder", s, m, enc_err),
+        _kernel_entry("ldpc_decoder", "decoder", s, m, dec_err)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

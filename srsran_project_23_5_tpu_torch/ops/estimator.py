@@ -1,15 +1,17 @@
 """Port channel estimation from comb-2 DM-RS pilots.
 
-Counterpart of ``estimate_comb2`` in ``srsran_project_23_5_tpu/ops/estimator.py``
-(least squares at the pilots, average across DM-RS symbols, noise variance
-from the residuals, time-alignment derotation and midpoint interpolation onto
-the allocation).  Per-symbol time interpolation is not ported.
+Counterpart of ``estimate_comb2`` and ``estimate_comb2_occ2`` in
+``srsran_project_23_5_tpu/ops/estimator.py`` (least squares at the pilots,
+CDM despreading for two layers, average across DM-RS symbols, noise variance
+from the residuals, time-alignment derotation, and interpolation onto the
+allocation).  Per-symbol time interpolation is not ported.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 
@@ -20,7 +22,8 @@ class CombChannelEstimate:
     noise_var: torch.Tensor   # [...]
     epre: torch.Tensor        # [...] average energy per pilot RE
     rsrp: torch.Tensor        # [...] |avg channel|^2 power
-    ta_norm: torch.Tensor     # [...] delay in samples = ta_norm * nfft
+    # [...] delay in samples = ta_norm * nfft (single-layer estimate only)
+    ta_norm: torch.Tensor | None = None
 
 
 def _comb2_interp(p: torch.Tensor) -> torch.Tensor:
@@ -66,3 +69,75 @@ def estimate_comb2(rx_pilots: torch.Tensor,
     h_alloc = _comb2_interp(p * derot) * rerot
     return CombChannelEstimate(h_alloc=h_alloc, noise_var=noise_var,
                                epre=epre, rsrp=rsrp, ta_norm=ta_norm)
+
+
+def estimate_comb2_occ2(rx_pilots: torch.Tensor, tx_pilots: torch.Tensor,
+                        sc_offset: int = 0) -> CombChannelEstimate:
+    """Two-layer CDM despread estimate (DM-RS type 1, CDM group 0).
+
+    Ports 0/1 share the comb and are separated by the frequency OCC
+    [+1,+1] / [+1,-1] over consecutive pilot pairs.  rx_pilots:
+    [..., ndmrs_sym, npilot]; tx_pilots the port-0 (un-OCC'd) pilots.
+    Returns h_alloc [..., 2, nsc_alloc], the channel of each layer over the
+    allocation, and noise_var/epre/rsrp per leading index (no ta_norm).
+    """
+    lse = rx_pilots * torch.conj(tx_pilots) / (tx_pilots.abs() ** 2)
+    even = lse[..., 0::2]
+    odd = lse[..., 1::2]
+    h = torch.stack([0.5 * (even + odd), 0.5 * (even - odd)],
+                    dim=-3)                                # [..., 2, nsym, np]
+    ndmrs = h.shape[-2]
+    p = h.mean(dim=-2)                                     # [..., 2, npair]
+    if ndmrs > 1:
+        resid = h - p[..., None, :]
+        # despreading halves the per-RE noise: scale the residual var by 2
+        noise_var = (2.0 * (resid.abs() ** 2).mean(dim=(-1, -2, -3))
+                     * ndmrs / (ndmrs - 1))
+    else:
+        diff = p[..., 1:] - p[..., :-1]
+        noise_var = (diff.abs() ** 2).mean(dim=(-1, -2))
+    epre = (rx_pilots.abs() ** 2).mean(dim=(-1, -2))
+    rsrp = (p.abs() ** 2).mean(dim=(-1, -2))
+    # pair j covers allocation subcarriers {4j, 4j+2} (+sc_offset):
+    # interpolate from the centres 4j+1 onto every allocation subcarrier
+    npair = p.shape[-1]
+    sc = 4 * np.arange(npair) + 1 + sc_offset
+    h_alloc = _interp_freq(p, sc, 4 * npair)
+    return CombChannelEstimate(h_alloc=h_alloc, noise_var=noise_var,
+                               epre=epre, rsrp=rsrp)
+
+
+def _interp_freq(h_pilot: torch.Tensor, sc_idx: np.ndarray,
+                 nsc: int) -> torch.Tensor:
+    """Linear interpolation + edge extrapolation onto [0, nsc) from a
+    regular pilot comb (every DM-RS pattern in use): per-phase weighted
+    sums of two shifted pilot views, interleaved by a stack and a
+    reshape."""
+    sc = np.asarray(sc_idx, dtype=np.int64)
+    steps = np.diff(sc)
+    if len(sc) < 2 or np.any(steps != steps[0]):
+        raise ValueError("frequency interpolation needs a regular pilot comb")
+    return _interp_freq_regular(h_pilot, int(sc[0]), int(steps[0]), nsc)
+
+
+def _interp_freq_regular(h_pilot: torch.Tensor, first: int, step: int,
+                         nsc: int) -> torch.Tensor:
+    """Linear interpolation for pilots at subcarriers first + step·k."""
+    npil = h_pilot.shape[-1]
+    pl = h_pilot[..., :-1]
+    pr = h_pilot[..., 1:]
+    phases = []
+    for r in range(step):
+        w = np.float32(r / step)
+        phases.append(float(np.float32(1.0) - w) * pl + float(w) * pr
+                      if r else pl)
+    # [..., npil-1, step] → [..., (npil-1)·step]: targets
+    # [first, first + step·(npil-1))
+    body = torch.stack(phases, dim=-1).reshape(*h_pilot.shape[:-1],
+                                               (npil - 1) * step)
+    p0, p1 = h_pilot[..., 0:1], h_pilot[..., 1:2]
+    pm, pe = h_pilot[..., -2:-1], h_pilot[..., -1:]
+    head = [p0 + ((t - first) / step) * (p1 - p0) for t in range(first)]
+    ntail = nsc - first - step * (npil - 1)
+    tail = [pe + (t / step) * (pe - pm) for t in range(ntail)]
+    return torch.cat([*head, body, *tail], dim=-1)

@@ -1,7 +1,7 @@
 """Constellation mapping and max-log soft demapping (TS 38.211 §5.1).
 
-Counterpart of ``srsran_project_23_5_tpu/ops/modulation.py`` for QPSK,
-16QAM, 64QAM and 256QAM.  NR QAM is Gray-labelled square QAM with independent
+Counterpart of ``srsran_project_23_5_tpu/ops/modulation.py`` for BPSK
+(mapping only), QPSK, 16QAM, 64QAM and 256QAM.  NR QAM is Gray-labelled square QAM with independent
 I/Q axes, so each axis maps and demaps as PAM.  LLRs follow ln(P(0)/P(1))
 (positive ⇒ bit 0).
 """
@@ -44,14 +44,19 @@ def pam_levels(qm: int) -> np.ndarray:
 def modulate(bits: torch.Tensor, qm: int) -> torch.Tensor:
     """[..., E] {0,1} int8 → [..., E/qm] complex64 symbols.
 
-    The Gray-coded PAM amplitude is evaluated arithmetically per axis,
+    qm = 1 is BPSK, d = (1-2b)(1+j)/√2.  Otherwise the Gray-coded PAM
+    amplitude is evaluated arithmetically per axis,
     level = s0·(2^(n-1) − s1·(2^(n-2) − …)) with s_k = 1−2b_k.
     """
-    _check_qm(qm)
+    if qm != 1:
+        _check_qm(qm)
     *lead, e = bits.shape
     if e % qm:
         raise ValueError(f"{e} bits do not fill {qm}-bit symbols")
     s = 1.0 - 2.0 * bits.reshape(*lead, e // qm, qm).to(torch.float32)
+    if qm == 1:
+        v = s[..., 0] / float(np.float32(np.sqrt(2.0)))
+        return torch.complex(v, v)
 
     def axis(sb: torch.Tensor) -> torch.Tensor:
         nb = sb.shape[-1]

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from srsran_project_23_5_tpu_torch.models import gnb_flagship
+from srsran_project_23_5_tpu_torch.models import gnb_flagship, gnb_mixed
 from srsran_project_23_5_tpu_torch.ops.ldpc import (decoder_cuda,
                                                     encoder_cuda, graphs)
 from srsran_project_23_5_tpu_torch.phy import pipeline
@@ -39,8 +39,11 @@ def _noisy_llr(rng, cw, snr_db, zc):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bg,zc,batch", [(2, 384, 88), (1, 384, 16),
-                                         (2, 36, 13), (1, 2, 3)])
+@pytest.mark.parametrize("bg,zc,batch", [
+    (2, 384, 88), (1, 384, 16), (2, 36, 13), (1, 2, 3),
+    # the 273-PRB mixed slot at 8 slots per batch: pdsch0, pdsch1, pusch0,
+    # pusch1
+    (1, 384, 128), (1, 384, 56), (1, 384, 136), (1, 352, 64)])
 def test_encoder_kernel_matches_plain(cuda, bg, zc, batch):
     gen = torch.Generator(device=cuda).manual_seed(10)
     k = graphs.lifted_graph(bg, zc).nof_msg_blocks * zc
@@ -56,7 +59,10 @@ def test_encoder_kernel_matches_plain(cuda, bg, zc, batch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("bg,zc,batch,snr,n_used", [
     (2, 384, 88, 2.0, 52), (2, 384, 88, np.linspace(-5, -1, 88), 52),
-    (1, 384, 16, np.linspace(1, 5, 16), 40), (2, 36, 13, 3.0, None)])
+    (1, 384, 16, np.linspace(1, 5, 16), 40), (2, 36, 13, 3.0, None),
+    # the mixed slot's two PUSCH at 8 slots per batch
+    (1, 384, 136, 6.0, 35), (1, 384, 136, np.linspace(2, 6, 136), 35),
+    (1, 352, 64, 6.0, 36), (1, 352, 64, np.linspace(2, 6, 64), 36)])
 def test_decoder_kernel_matches_plain(cuda, bg, zc, batch, snr, n_used):
     rng = np.random.default_rng(11)
     g = graphs.lifted_graph(bg, zc)
@@ -118,5 +124,51 @@ def test_slot_pipeline_on_card(cuda):
     assert ok.all() and abs(float(sinr.mean()) - 20.0) < 1.5
     for _ in range(3):
         pipe.submit(tb)
+    results = pipe.drain()
+    assert len(results) == 3 and all(ok.all() for ok, _ in results)
+
+
+_MIXED_FLAGS = ("ok", "ul0_ok", "ul1_ok", "dl0_ok", "dl1_ok", "dci_crc_ok",
+                "pucch_ok", "prach_ok")
+
+
+@pytest.mark.cuda
+def test_tiny_mixed_on_card_matches_cpu(cuda):
+    cfg = gnb_mixed.tiny_mixed()
+    pay = gnb_mixed.make_payloads(cfg, np.random.default_rng(12), 2)
+    noise = gnb_mixed.draw_noise(cfg, 2, torch.Generator().manual_seed(12))
+    want = gnb_mixed.mixed_slot_batch(pay, *noise, cfg)
+    w_dec = gnb_mixed.decode_uplink(gnb_mixed._mixed_front(pay, *noise, cfg),
+                                    cfg)
+    g_pay = {k: v.to(cuda) for k, v in pay.items()}
+    g_noise = [n.to(cuda) for n in noise]
+    enc0, dec0 = encoder_cuda.encode.launches, decoder_cuda.decode.launches
+    got = gnb_mixed.mixed_slot_batch(g_pay, *g_noise, cfg)
+    torch.cuda.synchronize()
+    assert encoder_cuda.encode.launches == enc0 + 4
+    assert decoder_cuda.decode.launches == dec0 + 2
+    assert bool(want.ok.all())
+    for f in _MIXED_FLAGS:
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    for f in ("sinr_ul_db", "sinr_dl0_db", "csi_sinr_db"):
+        assert float((getattr(got, f).cpu() - getattr(want, f)).abs().max()
+                     ) < 0.1, f
+    g_dec = gnb_mixed.decode_uplink(
+        gnb_mixed._mixed_front(g_pay, *g_noise, cfg), cfg)
+    for k in w_dec:
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(g_dec[k], w_dec[k]))
+
+
+@pytest.mark.cuda
+def test_mixed_slot_pipeline_on_card(cuda):
+    cfg = gnb_mixed.tiny_mixed()
+    pipe = pipeline.SlotPipeline(
+        pipeline.PipelineConfig(carrier=None, slots_per_batch=2, depth=2),
+        device="cuda", seed=0, batch_fn=gnb_mixed.batch_fn_for_pipeline(cfg))
+    pay = gnb_mixed.make_payloads(cfg, np.random.default_rng(13), 2, "cuda")
+    _, ok, sinr = pipe.warmup(pay)
+    assert ok.all() and abs(float(sinr.mean()) - 20.0) < 1.0
+    for _ in range(3):
+        pipe.submit(pay)
     results = pipe.drain()
     assert len(results) == 3 and all(ok.all() for ok, _ in results)

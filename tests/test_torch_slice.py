@@ -164,8 +164,8 @@ def test_convert_round_trip(name):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("nof_layers", 2), ("uci", ulsch.UciOnPusch(g_harq_ack=12)),
-    ("reserved_patterns", ((5, (0,)),)), ("vrb_to_prb_interleaved", True),
+    ("nof_layers", 4), ("uci", ulsch.UciOnPusch(g_harq_ack=12)),
+    ("nof_layers", 3), ("vrb_to_prb_interleaved", True),
     ("time_interp", True)])
 def test_convert_refuses_unported_fields(field, value):
     jsh = dataclasses.replace(gnb_flagship.tiny_carrier().sh, **{field: value})
