@@ -14,8 +14,10 @@ Phases, one line each:
 4. decoder — kernel vs ``decode_plain`` on the card, bits and ok
    identical, at the flagship shape and the mixed slot's two shapes (BG1
    Z=384 n_used 35 x136, BG1 Z=352 n_used 36 x64), each converging and with
-   mixed convergence, on truncated graphs, at Z=36; an oversized state must
-   be refused;
+   mixed convergence, on truncated graphs, at Z=36, and on the full BG1
+   graph at Z=320/352/384 (c2v in device memory); the shared-memory and
+   global-c2v instances give the same bits and ok on three shapes that fit
+   both, each at mixed-convergence SNRs and over a wide SNR sweep;
 5. slice   — ``SlotPipeline`` on the 273-PRB flagship carrier, 8 slots per
    batch, depth 2, 20 dB: warmup + submits + drain; every TB CRC ok, mean
    SINR within 1.5 dB of 20, both kernels launched in that run; decoded bits
@@ -35,7 +37,25 @@ Phases, one line each:
    payloads and noise through the plain versions on the CPU: every verdict
    and the decoded bits equal, SINRs within 0.1 dB;
 9. mixed-profile — torch.profiler over two mixed batches, and over the
-   once-per-batch DCI re-check alone (its device op count).
+   once-per-batch DCI re-check alone (its device op count);
+10. upper-phy — ``UpperPhy`` (FAPI DL_TTI/UL_TTI → grids → indications) on
+   the 273-PRB carrier of ``models/fapi_carrier.py``, 4 rx ports, 20 dB:
+   8 DL slots (SSB, 2×PDCCH, 2×PDSCH, CSI-RS; one slot a VRB-interleaved
+   PDSCH over the BWP), each grid equal to the CPU's on two slots and each
+   PDSCH passing ``symbol_verify`` after OFDM and AWGN; 8 UL slots rotating
+   two mixes (4-layer PUSCH, PUSCH with UCI and time interpolation, PUCCH
+   F1 and F2, a multi-root PRACH; or PUSCH B and F1): every CRC, payload,
+   UCI bit, preamble and TA recovered, PUSCH B's SINR within 1 dB of 20,
+   one decoder launch per decode group, the first slot equal to the CPU's,
+   and the kernel equal to ``decode_plain`` on the LLRs each decode group
+   of that slot handed it (BG1 Z=384 x34 n_used 35, x8 n_used 33);
+   a HARQ pair at 14 dB (rv=0 fails, rv=2 combined on the full BG1 graph at
+   Z=384 passes and releases the softbuffer); three programs for the two
+   mixes and the retransmission; ms per DL and UL slot, and the
+   full-graph decoder against ``decode_plain`` and the truncated graph
+   (both checked against ``decode_plain`` first);
+11. upper-profile — torch.profiler over two DL slots and two full-mix UL
+   slots of the upper PHY.
 
 Then one JSON line with the kernels and, last, the result line.  Any
 failure raises and exits non-zero.
@@ -44,6 +64,7 @@ failure raises and exits non-zero.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -52,13 +73,16 @@ import time
 import numpy as np
 import torch
 
-from srsran_project_23_5_tpu_torch.models import gnb_flagship, gnb_mixed
+from srsran_project_23_5_tpu_torch.fapi import messages as fapi
+from srsran_project_23_5_tpu_torch.models import (fapi_carrier, gnb_flagship,
+                                                  gnb_mixed)
 from srsran_project_23_5_tpu_torch.ops.ldpc import (decoder_cuda,
                                                     encoder_cuda, graphs,
                                                     segmentation)
 from srsran_project_23_5_tpu_torch.phy import pipeline
 from srsran_project_23_5_tpu_torch.phy.lower import ofdm
-from srsran_project_23_5_tpu_torch.phy.upper import sch
+from srsran_project_23_5_tpu_torch.phy.upper import (sch, slot_programs,
+                                                     upper_phy)
 from srsran_project_23_5_tpu_torch.utils import kernels
 
 FLAGSHIP_CBS = 88          # 8 slots x 11 codeblocks
@@ -70,6 +94,7 @@ MIXED_SUBMITS = 4
 # n_used) of pusch0, pusch1
 MIXED_ENC = [(1, 384, 128), (1, 384, 56), (1, 384, 136), (1, 352, 64)]
 MIXED_DEC = [(1, 384, 136, 35), (1, 352, 64, 36)]
+UPPER_SLOTS = 8
 
 
 def _check(cond: bool, what: str) -> None:
@@ -177,6 +202,12 @@ def phase_decoder(dev, card: str) -> float:
         ("BG1-truncated", 1, 384, 24, np.linspace(1.0, 5.0, 24), 40),
         ("BG2-truncated", 2, 384, 24, np.linspace(0.0, 4.0, 24), 20),
         ("Z36", 2, 36, 13, 3.0, None),
+        # the full BG1 graph of rv>0 and HARQ-combined decodes: c2v moves
+        # to device memory above Z=302
+        *[(f"full-BG1-Z{z}{tag}", 1, z, 64, snr, None)
+          for z in (320, 352, 384)
+          for tag, snr in (("", 1.5), ("-mixed", np.linspace(-1.0, 2.5,
+                                                              64)))],
     ]
     max_err, notes = 0, []
     for label, bg, zc, batch, snr, n_used in cases:
@@ -195,21 +226,43 @@ def phase_decoder(dev, card: str) -> float:
         _check(torch.equal(ok, w_ok) and torch.equal(bits, w_bits),
                f"decoder kernel != plain for {label}")
         n_ok = int(ok.sum())
-        if label in ("flagship", "mixed-BG1-Z384", "mixed-BG1-Z352"):
+        if label in ("flagship", "mixed-BG1-Z384", "mixed-BG1-Z352",
+                     "full-BG1-Z320", "full-BG1-Z352", "full-BG1-Z384"):
             _check(n_ok == batch and torch.equal(bits, msg),
                    f"{label} decode did not converge")
         if label.endswith("-mixed"):
             _check(0 < n_ok < batch, f"no mixed convergence for {label} "
                    f"({n_ok})")
         notes.append(f"{label} {n_ok}/{batch} ok")
-    try:
-        decoder_cuda.decode(torch.zeros((2, 68 * 384), device=dev), 1, 384)
-    except ValueError as exc:
-        _check("294912 B" in str(exc), f"wrong refusal: {exc}")
-    else:
-        raise AssertionError("full BG1 Z=384 graph was not refused")
+    # the global-c2v instance against the shared-memory one on shapes that
+    # fit both (the mixed slot's pusch0 shape, the flagship's, a mid Z),
+    # each at its mixed-convergence SNRs and over a wide sweep
+    same = []
+    for bg, zc, batch, n_used, snr in (
+            (1, 384, 136, 35, (2.0, 6.0)), (1, 384, 136, 35, (-4.0, 8.0)),
+            (2, 384, 88, 52, (-5.0, -1.0)), (2, 384, 88, 52, (-6.0, 6.0)),
+            (1, 208, 64, None, (-1.0, 2.5)), (1, 208, 64, None, (-4.0, 8.0))):
+        k = graphs.lifted_graph(bg, zc).nof_msg_blocks * zc
+        msg = torch.randint(0, 2, (batch, k), generator=gen, device=dev,
+                            dtype=torch.int8)
+        llr = _noisy_llr(rng, encoder_cuda.encode_plain(msg, bg, zc),
+                         np.linspace(*snr, batch), zc, dev)
+        if n_used is not None:
+            llr[:, n_used * zc:] = 0.0
+        shared = decoder_cuda.decode(llr, bg, zc, nof_used_blocks=n_used)
+        glob = decoder_cuda.decode(llr, bg, zc, nof_used_blocks=n_used,
+                                   _global_c2v=True)
+        torch.cuda.synchronize()
+        rows = int(((shared[0] != glob[0]).any(dim=1)
+                    | (shared[1] != glob[1])).sum())
+        _check(rows == 0, f"global-c2v decoder != shared-memory decoder in "
+               f"{rows} rows at BG{bg} Z={zc} x{batch} SNR {snr}")
+        same.append(f"BG{bg} Z={zc} x{batch} n_used {n_used} SNR "
+                    f"{snr[0]:g}..{snr[1]:g} dB ({int(shared[1].sum())}/"
+                    f"{batch} ok)")
     print(f"[decoder] bit-exact (bits, ok) vs decode_plain: "
-          f"{'; '.join(notes)}; full BG1 Z=384 refused on {card}")
+          f"{'; '.join(notes)}; global-c2v == shared, 0 rows differ, at "
+          f"{'; '.join(same)} on {card}")
     return float(max_err)
 
 
@@ -305,21 +358,21 @@ def phase_slice(dev, card: str) -> dict:
             "dec_plain_ms": dec_plain_ms, "pipe": pipe, "tb": tb}
 
 
-def phase_profile(card: str, label: str, pipe, batch, nslots: int) -> None:
-    """torch.profiler over two pipeline batches: device busy share, the
-    kernels that take the device time, and each LDPC kernel's device time
-    per launch on the main path's data.  The profiler's own host cost
+def _profiled(run, reps: int, unit: str, after=None) -> str:
+    """torch.profiler over ``reps`` calls of ``run`` (then ``after()``):
+    device busy share, the kernels that take the device time, and each LDPC
+    kernel's device time per launch.  The profiler's own host cost
     lengthens the window, so the busy share is a lower bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    batches = 2
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(batches):
-            pipe.submit(batch)
-        pipe.drain()
+        for _ in range(reps):
+            run()
+        if after is not None:
+            after()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # device-side entries only: a CPU op's self device time repeats its kernels
@@ -339,12 +392,18 @@ def phase_profile(card: str, label: str, pipe, batch, nslots: int) -> None:
     top_s = "; ".join(
         f"{e.key[:48]} {100 * e.self_device_time_total / busy_us:.1f}%"
         for e in top[:6])
-    print(f"[{label}] {batches} batches of {nslots} slots: wall "
-          f"{wall_us:.0f} us, device busy {busy_us:.0f} us "
-          f"({100 * busy_us / wall_us:.1f}%), {launches / batches:.0f} device "
-          f"ops per batch; encoder kernel {per_launch('ldpc_encode_kernel')}, "
-          f"decoder kernel {per_launch('ldpc_decode_kernel')}; top: {top_s} "
-          f"on {card}")
+    return (f"wall {wall_us:.0f} us, device busy {busy_us:.0f} us "
+            f"({100 * busy_us / wall_us:.1f}%), {launches / reps:.0f} device "
+            f"ops per {unit}; encoder kernel {per_launch('ldpc_encode_kernel')}"
+            f", decoder kernel {per_launch('ldpc_decode_kernel')}; top: "
+            f"{top_s}")
+
+
+def phase_profile(card: str, label: str, pipe, batch, nslots: int) -> None:
+    """The profile of two pipeline batches (submits + drain)."""
+    print(f"[{label}] 2 batches of {nslots} slots: "
+          f"{_profiled(lambda: pipe.submit(batch), 2, 'batch', pipe.drain)}"
+          f" on {card}")
 
 
 _MIXED_FLAGS = ("ok", "ul0_ok", "ul1_ok", "dl0_ok", "dl1_ok", "dci_crc_ok",
@@ -518,20 +577,246 @@ def phase_dci_profile(card: str, cfg, pipe, payloads) -> None:
           f"{wall_us:.0f} us wall under the profiler on {card}")
 
 
+def _same_indications(got: list, want: list, sinr_tol: float) -> bool:
+    """Card and CPU indications: the same kinds, verdicts, bits and
+    preambles; SINR and TA within sinr_tol (dB, samples)."""
+    if [type(i) for i in got] != [type(i) for i in want]:
+        return False
+    for g, w in zip(got, want):
+        for k, b in vars(w).items():
+            a = getattr(g, k)
+            if k in ("sinr_db", "ta_samples"):
+                ok = abs(a - b) < sinr_tol
+            elif k == "metric":
+                ok = abs(a - b) <= 1e-3 * max(abs(b), 1.0)
+            elif k == "preambles":
+                ok = [p[0] for p in a] == [p[0] for p in b]
+            elif isinstance(b, np.ndarray) or b is None:
+                ok = (a is None) == (b is None) and (
+                    b is None or np.array_equal(a, b))
+            else:
+                ok = a == b
+            if not ok:
+                return False
+    return True
+
+
+def phase_upper_phy(dev, card: str) -> dict:
+    """UpperPhy on the 273-PRB FAPI carrier: DL and UL slots, a HARQ pair
+    through the full BG1 graph, the program cache."""
+    car = fapi_carrier.default_carrier()
+    phy = upper_phy.UpperPhy(car.upper_phy, dev)
+    phy_cpu = upper_phy.UpperPhy(car.upper_phy, "cpu")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    rng = np.random.default_rng(8)
+    gate = gnb_mixed.symbol_gate(car.pdsch_a.qm, car.snr_db)
+    ul_reqs, dl_ms, ul_ms, matches, sinr_b = [], [], [], [], []
+    decode_grouped, group_inputs = slot_programs._decode_grouped, []
+
+    encoder_cuda.encode.launches = 0
+    decoder_cuda.decode.launches = 0
+    for slot in range(UPPER_SLOTS):
+        # ---- downlink
+        req, data = fapi_carrier.dl_request(car, slot, rng, vrb=slot == 5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grid = phy.process_dl_slot(req, data)
+        torch.cuda.synchronize()
+        dl_ms.append((time.perf_counter() - t0) * 1e3)
+        if slot in (0, 5):
+            want = phy_cpu.process_dl_slot(req, data)
+            err = float((grid.cpu() - want).abs().max() / want.abs().max())
+            _check(err < 1e-5, f"DL slot {slot}: card grid differs from the "
+                   f"CPU's by {err:.2e} of max|ref|")
+        ue = fapi_carrier.downlink(grid, car, gen)
+        for p in req.pdsch_pdus:
+            m, _, _ = sch.symbol_verify(ue[None], grid[None], p.config)
+            matches.append(float(m[0]))
+            _check(matches[-1] > gate, f"DL slot {slot} PDSCH {p.config.rnti:#x}"
+                   f": symbol match {matches[-1]:.4f} <= {gate:.4f}")
+        # ---- uplink, two mixes in turn
+        ul = fapi_carrier.ul_request(car, slot, full=slot % 2 == 0)
+        pay = fapi_carrier.ul_payloads(ul, rng)
+        rx, prach_rx = fapi_carrier.uplink(ul, pay, car, gen)
+        groups = slot_programs.decode_groups(
+            slot_programs.signature(ul)[0])
+        if slot == 0:
+            # keep what each decode group hands the decoder, to hold the
+            # kernel against decode_plain on those very inputs afterwards
+            def keep(llrs, groups, iters):
+                for (bg, zc, _, n_used), idxs in groups.items():
+                    group_inputs.append((
+                        torch.cat([llrs[i] for i in idxs]), bg, zc,
+                        {"nof_iterations": iters, "nof_used_blocks": n_used}))
+                return decode_grouped(llrs, groups, iters)
+            slot_programs._decode_grouped = keep
+        d0 = decoder_cuda.decode.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            inds = phy.process_ul_slot(rx, ul, slot_count=slot,
+                                       prach_rx=prach_rx)
+        finally:
+            slot_programs._decode_grouped = decode_grouped
+        ul_ms.append((time.perf_counter() - t0) * 1e3)
+        ul_reqs.append(ul)
+        _check(decoder_cuda.decode.launches - d0 == len(groups),
+               f"UL slot {slot}: {decoder_cuda.decode.launches - d0} decoder "
+               f"launches for {len(groups)} decode groups")
+        checks = fapi_carrier.ul_checks(car, ul, pay, inds,
+                                        phy.last_ul_slot["pusch"])
+        _check(all(checks.values()), f"UL slot {slot} checks: {checks}")
+        crc_b = [i for i in inds if isinstance(i, fapi.CrcIndication)][-1]
+        sinr_b.append(crc_b.sinr_db)
+        _check(abs(crc_b.sinr_db - car.snr_db) < 1.0,
+               f"UL slot {slot}: PUSCH B SINR {crc_b.sinr_db:.2f} dB")
+        if slot == 0:
+            want = phy_cpu.process_ul_slot(rx.cpu(), ul, slot_count=slot,
+                                           prach_rx=prach_rx.cpu())
+            _check(_same_indications(inds, want, 0.1),
+                   "UL slot 0: card and CPU indications differ")
+            for a, b in zip(phy.last_ul_slot["pusch"],
+                            phy_cpu.last_ul_slot["pusch"]):
+                _check(all(np.array_equal(a[f], b[f]) for f in a
+                           if f.endswith(("_bits", "_valid"))),
+                       "UL slot 0: card and CPU UCI differ")
+    launches = {"encoder": encoder_cuda.encode.launches,
+                "decoder": decoder_cuda.decode.launches}
+    _check(launches["encoder"] > 0 and launches["decoder"] > 0,
+           f"upper PHY run did not launch both kernels: {launches}")
+
+    # ---- each decode group of the full-mix slot 0: kernel vs plain on the
+    # LLRs the program handed it (PUSCH A x34 n_used 35, PUSCH B x8 n_used 33)
+    _check(len(group_inputs) == 2,
+           f"{len(group_inputs)} decode groups in the full-mix slot, not 2")
+    times = []
+    for llr, bg, zc, kw in group_inputs:
+        got = decoder_cuda.decode(llr, bg, zc, **kw)
+        want = decoder_cuda.decode_plain(llr, bg, zc, **kw)
+        torch.cuda.synchronize()
+        shape = (f"BG{bg} Z={zc} x{llr.shape[0]} n_used "
+                 f"{kw['nof_used_blocks']} (UpperPhy slot 0)")
+        _check(all(torch.equal(a, b) for a, b in zip(got, want)),
+               f"decoder kernel != plain on the UL slot's group {shape}")
+        times.append(("decoder", shape,
+                      _time_ms(lambda: decoder_cuda.decode(llr, bg, zc, **kw),
+                               50),
+                      _time_ms(lambda: decoder_cuda.decode_plain(
+                          llr, bg, zc, **kw), 3)))
+
+    # ---- HARQ pair: rv=0 fails, rv=2 combines on the full graph and passes
+    first = fapi_carrier.ul_request(car, UPPER_SLOTS, full=False,
+                                    harq_process=15)
+    pay = fapi_carrier.ul_payloads(first, rng)
+    rx1, _ = fapi_carrier.uplink(first, pay, car, gen,
+                                 snr_db=car.harq_snr_db)
+    inds1 = phy.process_ul_slot(rx1, first, slot_count=UPPER_SLOTS)
+    crc1 = [i for i in inds1 if isinstance(i, fapi.CrcIndication)][0]
+    _check(not crc1.tb_crc_ok and len(phy.softbuffers) == 1,
+           f"HARQ rv=0 at {car.harq_snr_db} dB: crc {crc1.tb_crc_ok}, "
+           f"{len(phy.softbuffers)} softbuffers")
+    rnti = first.pusch_pdus[0].config.rnti
+    prior = phy.softbuffers.get(rnti, 15).clone()
+    retx = fapi_carrier.ul_request(car, UPPER_SLOTS + 1, full=False,
+                                   harq_process=15, rv=2, new_data=False)
+    rx2, _ = fapi_carrier.uplink(retx, pay, car, gen, snr_db=car.harq_snr_db)
+    cfg2 = retx.pusch_pdus[0].config
+    seg = cfg2.segments
+    _check(sch.used_blocks(cfg2) is None
+           and decoder_cuda.state_bytes(seg.base_graph, seg.lifting_size)
+           > decoder_cuda.SMEM_LIMIT,
+           "the retransmission does not take the global-c2v full graph")
+    d0 = decoder_cuda.decode.launches
+    inds2 = phy.process_ul_slot(rx2, retx, slot_count=UPPER_SLOTS + 1)
+    checks = fapi_carrier.ul_checks(car, retx, pay, inds2, None)
+    _check(checks["crc"] and checks["payload"] and len(phy.softbuffers) == 0
+           and decoder_cuda.decode.launches - d0 == 1,
+           f"HARQ rv=2 combined decode: {checks}, "
+           f"{len(phy.softbuffers)} softbuffers")
+    ul_reqs += [first, retx]
+    # the slot number is normalised out of the signature: the two mixes of
+    # the eight slots and the retransmission (rv=2) make three
+    sigs = {slot_programs.signature(r) for r in ul_reqs}
+    _check(phy.ul_programs.nof_compiled == len(sigs) == 3,
+           f"{phy.ul_programs.nof_compiled} UL programs for {len(sigs)} "
+           f"signatures, not 3")
+
+    # ---- the full-graph decoder on the combined buffer: kernel vs plain,
+    # and the same LLRs through the rv=0 truncated graph
+    combined = (prior + sch.pusch_demodulate(rx2[None], cfg2).llr_full[0]
+                ).contiguous()
+    bg, zc = seg.base_graph, seg.lifting_size
+    n_used = sch.used_blocks(dataclasses.replace(cfg2, rv=0))
+    full = lambda: decoder_cuda.decode(combined, bg, zc)
+    plain = lambda: decoder_cuda.decode_plain(combined, bg, zc)
+    got, want = full(), plain()
+    torch.cuda.synchronize()
+    _check(all(torch.equal(a, b) for a, b in zip(got, want))
+           and bool(got[1].all()),
+           "full-graph decoder != plain on the combined buffer")
+    err = float((got[0].int() - want[0].int()).abs().max())
+    full_ms, plain_ms = _time_ms(full, 50), _time_ms(plain, 3)
+    trunc = lambda: decoder_cuda.decode(combined, bg, zc,
+                                        nof_used_blocks=n_used)
+    want = decoder_cuda.decode_plain(combined, bg, zc, nof_used_blocks=n_used)
+    _check(all(torch.equal(a, b) for a, b in zip(trunc(), want)),
+           f"truncated-graph decoder (n_used {n_used}) != plain on the "
+           f"combined buffer")
+    trunc_ms = _time_ms(trunc, 50)
+    shape = (f"BG{bg} Z={zc} x{combined.shape[0]} full graph (global c2v)")
+    times.append(("decoder", shape, full_ms, plain_ms))
+    print(f"[upper-phy] {car.nof_prb}-PRB FAPI carrier, 4 rx, "
+          f"{car.snr_db:.0f} dB: {UPPER_SLOTS} DL slots {np.median(dl_ms):.2f}"
+          f" ms median ({min(dl_ms):.2f}-{max(dl_ms):.2f}), PDSCH symbol "
+          f"match min {min(matches):.4f}; {UPPER_SLOTS} UL slots "
+          f"{np.median(ul_ms):.2f} ms median ({min(ul_ms):.2f}-"
+          f"{max(ul_ms):.2f}), every CRC/payload/UCI/PUCCH/PRACH check ok, "
+          f"PUSCH B SINR {np.mean(sinr_b):.2f} dB, launches {launches}; "
+          f"HARQ rv=0 fail -> rv=2 combined pass at {car.harq_snr_db:.0f} dB;"
+          f" {phy.ul_programs.nof_compiled} UL programs for {len(sigs)} "
+          f"signatures; decoder {shape} {full_ms:.4f} ms (plain "
+          f"{plain_ms:.3f} ms; truncated n_used {n_used} {trunc_ms:.4f} ms) "
+          f"on {card}")
+    groups_s = "; ".join(f"{s} {ms:.4f} ms (plain {pms:.3f} ms)"
+                         for _, s, ms, pms in times[:-1])
+    print(f"[upper-phy] decode groups of UL slot 0, kernel == plain on the "
+          f"program's LLRs: {groups_s}; truncated n_used {n_used} == plain on "
+          f"the combined buffer on {card}")
+    return {"launches": launches, "max_err": err, "times": times,
+            "phy": phy, "car": car, "gen": gen, "rng": rng}
+
+
+def phase_upper_profile(card: str, u: dict) -> None:
+    """torch.profiler over two DL slots and, apart, two full-mix UL slots of
+    the upper PHY."""
+    phy, car, gen, rng = u["phy"], u["car"], u["gen"], u["rng"]
+    req, data = fapi_carrier.dl_request(car, 0, rng)
+    ul = fapi_carrier.ul_request(car, 0)
+    pay = fapi_carrier.ul_payloads(ul, rng)
+    rx, prach_rx = fapi_carrier.uplink(ul, pay, car, gen)
+    dl = _profiled(lambda: phy.process_dl_slot(req, data), 2, "DL slot")
+    ul_s = _profiled(lambda: phy.process_ul_slot(rx, ul, prach_rx=prach_rx),
+                     2, "UL slot")
+    print(f"[upper-profile] 2 DL slots: {dl}; 2 full-mix UL slots: {ul_s} "
+          f"on {card}")
+
+
 def _kernel_entry(name: str, kind: str, flag: dict, mixed: dict,
-                  max_err: float) -> dict:
-    """One kernels-JSON entry: launches of both main paths; times of one
-    launch at each of their shapes, added up."""
+                  upper: dict, max_err: float) -> dict:
+    """One kernels-JSON entry: launches of the three main paths; times of
+    one launch at each of their shapes, added up."""
     shapes = [(f"flagship BG2 Z=384 x{FLAGSHIP_CBS}", flag[f"{kind[:3]}_ms"],
                flag[f"{kind[:3]}_plain_ms"])]
-    shapes += [(s, ms, pms) for k, s, ms, pms in mixed["times"] if k == kind]
+    shapes += [(s, ms, pms) for k, s, ms, pms in mixed["times"] + upper["times"]
+               if k == kind]
     return {"name": name, "route": "cuda",
             "source": f"srsran_project_23_5_tpu_torch/csrc/{name}.cu",
             "replaces": {"encoder": "srsran_project_23_5_tpu/ops/ldpc/"
                                     "encoder_pallas.py:84",
                          "decoder": "srsran_project_23_5_tpu/ops/ldpc/"
                                     "decoder_pallas.py:195"}[kind],
-            "launches": flag["launches"][kind] + mixed["launches"][kind],
+            "launches": (flag["launches"][kind] + mixed["launches"][kind]
+                         + upper["launches"][kind]),
             "max_abs_err": max_err,
             "ms": sum(ms for _, ms, _ in shapes),
             "plain_ms": sum(pms for _, _, pms in shapes),
@@ -551,9 +836,12 @@ def main() -> None:
     phase_profile(card, "mixed-profile", m["pipe"], m["payloads"],
                   SLICE_BATCH)
     phase_dci_profile(card, m["cfg"], m["pipe"], m["payloads"])
+    u = phase_upper_phy(dev, card)
+    phase_upper_profile(card, u)
     print(json.dumps({"kernels": [
-        _kernel_entry("ldpc_encoder", "encoder", s, m, enc_err),
-        _kernel_entry("ldpc_decoder", "decoder", s, m, dec_err)]}))
+        _kernel_entry("ldpc_encoder", "encoder", s, m, u, enc_err),
+        _kernel_entry("ldpc_decoder", "decoder", s, m, u,
+                      max(dec_err, u["max_err"]))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,20 +1,24 @@
-"""Carry the JAX package's configurations over to the port, field by field.
+"""Carry the JAX package's configurations and FAPI messages over to the port,
+field by field.
 
 This system has no weights: its parameters are the frozen configuration
-dataclasses (and the 38.212 tables both packages read).  ``from_jax_carrier``,
-``from_jax_sh`` and ``from_jax_mixed`` take a ``gnb_flagship.CarrierConfig``,
-``sch.ShConfig`` or ``gnb_mixed.MixedSlotConfig`` of the JAX package as
-arguments, so this module never imports JAX.  Fields the port does not carry
-yet raise ``NotImplementedError`` naming the field.
+dataclasses (and the 38.212 tables both packages read).  ``from_jax_sh``,
+``from_jax_carrier``, ``from_jax_mixed``, ``from_jax_upper_phy`` and
+``from_jax_message`` take objects of the JAX package as arguments, so this
+module never imports JAX.  ``from_jax_message`` turns a JAX FAPI request or
+PDU into the port's, so both packages can be fed the same requests.  Fields
+the port does not carry yet raise ``NotImplementedError`` naming the field.
 """
 from __future__ import annotations
 
 import dataclasses
 
+from .fapi import messages
 from .models.gnb_flagship import CarrierConfig
 from .models.gnb_mixed import MixedSlotConfig
-from .phy.upper import csi_rs, pdcch, pucch, ssb
+from .phy.upper import csi_rs, pdcch, pucch, ssb, ulsch
 from .phy.upper.sch import ShConfig
+from .phy.upper.upper_phy import UpperPhyConfig
 
 
 def _refuse(cls: str, field: str, why: str) -> None:
@@ -30,17 +34,21 @@ def _carry(port_cls, cfg, **converted):
 
 def from_jax_sh(cfg) -> ShConfig:
     """JAX ``sch.ShConfig`` → the port's ``ShConfig``."""
-    if cfg.nof_layers > 2:
+    if cfg.nof_layers not in (1, 2, 4):
         _refuse("ShConfig", "nof_layers",
                 f"{cfg.nof_layers}-layer spatial multiplexing")
-    if cfg.uci.any:
-        _refuse("ShConfig", "uci", "UCI multiplexed on PUSCH")
-    if cfg.vrb_to_prb_interleaved:
-        _refuse("ShConfig", "vrb_to_prb_interleaved",
-                "interleaved VRB-to-PRB mapping")
-    if cfg.time_interp:
-        _refuse("ShConfig", "time_interp", "per-symbol time interpolation")
-    return _carry(ShConfig, cfg)
+    return _carry(ShConfig, cfg, uci=_carry(ulsch.UciOnPusch, cfg.uci))
+
+
+def from_jax_pdcch(cfg) -> pdcch.PdcchConfig:
+    """JAX ``pdcch.PdcchConfig`` → the port's (non-interleaved one-symbol
+    CORESETs only)."""
+    if cfg.interleaved:
+        _refuse("PdcchConfig", "interleaved",
+                "interleaved CCE-to-REG mapping")
+    if cfg.nof_symbols != 1:
+        _refuse("PdcchConfig", "nof_symbols", "a multi-symbol CORESET")
+    return _carry(pdcch.PdcchConfig, cfg)
 
 
 def from_jax_carrier(cfg) -> CarrierConfig:
@@ -53,9 +61,10 @@ def from_jax_mixed(cfg) -> MixedSlotConfig:
     """JAX ``gnb_mixed.MixedSlotConfig`` → the port's ``MixedSlotConfig``
     (flat channels, the time-domain PRACH occasion, every downlink check
     on, no UE-side decode, non-interleaved one-symbol CORESETs)."""
-    if cfg.tdl_delays or cfg.tdl_gains:
-        _refuse("MixedSlotConfig", "tdl_delays",
-                "the frequency-selective channel")
+    for field in ("tdl_delays", "tdl_gains"):
+        if getattr(cfg, field):
+            _refuse("MixedSlotConfig", field,
+                    "the frequency-selective channel")
     if not cfg.prach_time_domain:
         _refuse("MixedSlotConfig", "prach_time_domain",
                 "the grid-level PRACH occasion")
@@ -65,17 +74,53 @@ def from_jax_mixed(cfg) -> MixedSlotConfig:
     for field in ("verify_dl_sch", "verify_dl_ctrl"):
         if not getattr(cfg, field):
             _refuse("MixedSlotConfig", field, "switching a downlink check off")
-    for name in ("pdcch_dl", "pdcch_ul"):
-        if getattr(cfg, name).interleaved:
-            _refuse("PdcchConfig", "interleaved",
-                    "interleaved CCE-to-REG mapping")
-        if getattr(cfg, name).nof_symbols != 1:
-            _refuse("PdcchConfig", "nof_symbols", "a multi-symbol CORESET")
     shs = {name: from_jax_sh(getattr(cfg, name))
            for name in ("pdsch0", "pdsch1", "pusch0", "pusch1")}
     return _carry(MixedSlotConfig, cfg, **shs,
-                  pdcch_dl=_carry(pdcch.PdcchConfig, cfg.pdcch_dl),
-                  pdcch_ul=_carry(pdcch.PdcchConfig, cfg.pdcch_ul),
+                  pdcch_dl=from_jax_pdcch(cfg.pdcch_dl),
+                  pdcch_ul=from_jax_pdcch(cfg.pdcch_ul),
                   ssb=_carry(ssb.SsbConfig, cfg.ssb),
                   csi_rs=_carry(csi_rs.CsiRsConfig, cfg.csi_rs),
                   pucch=_carry(pucch.PucchF1Config, cfg.pucch))
+
+
+def from_jax_upper_phy(cfg) -> UpperPhyConfig:
+    """JAX ``upper_phy.UpperPhyConfig`` → the port's."""
+    if cfg.sanitize:
+        _refuse("UpperPhyConfig", "sanitize",
+                "the grid write-overlap sanitizer")
+    return _carry(UpperPhyConfig, cfg)
+
+
+# JAX config class name → converter
+_CONFIGS = {
+    "ShConfig": from_jax_sh,
+    "PdcchConfig": from_jax_pdcch,
+    "SsbConfig": lambda c: _carry(ssb.SsbConfig, c),
+    "CsiRsConfig": lambda c: _carry(csi_rs.CsiRsConfig, c),
+    "PucchF1Config": lambda c: _carry(pucch.PucchF1Config, c),
+    "PucchF2Config": lambda c: _carry(pucch.PucchF2Config, c),
+}
+
+
+def _value(v):
+    if isinstance(v, list):
+        return [_value(x) for x in v]
+    if dataclasses.is_dataclass(v) and not isinstance(v, type):
+        name = type(v).__name__
+        if name in _CONFIGS:
+            return _CONFIGS[name](v)
+        return from_jax_message(v)
+    return v
+
+
+def from_jax_message(msg):
+    """A JAX ``fapi.messages`` request, PDU or indication → the port's
+    dataclass of the same name, its configs converted (payload arrays are
+    shared, not copied)."""
+    port_cls = getattr(messages, type(msg).__name__, None)
+    if port_cls is None or not dataclasses.is_dataclass(port_cls):
+        raise NotImplementedError(
+            f"{type(msg).__name__}: no FAPI message of that name in the port")
+    return port_cls(**{f.name: _value(getattr(msg, f.name))
+                       for f in dataclasses.fields(port_cls)})

@@ -20,8 +20,16 @@
 // app[c*Z + (j+s) mod Z], a bijection per edge, so no lane races another
 // within a layer.  A CTA exits as soon as its codeblock's syndrome passes,
 // which is the Pallas per-codeblock freeze: each codeblock's result does not
-// depend on its neighbours.  Shapes whose state exceeds the shared-memory
-// limit (the full BG1 graph at Z=384) are refused by the wrapper.
+// depend on its neighbours.
+//
+// The full BG1 graph at Z > 302 does not fit: (68 + 316) * 2 B * Z is
+// 294,912 B at Z=384.  It is decoded by a second instance of the same kernel
+// (kGlobalC2v) that keeps app (52,224 B at Z=384) in shared memory and c2v in
+// a global scratch buffer [batch, E*Z] the wrapper allocates.  Lane j reads
+// and writes only c2v[e*Z + j], so moving c2v needs no extra barrier and the
+// accesses of a warp are coalesced; 136 codeblocks take ~33 MB of scratch,
+// which stays in the 50 MB L2.  The arithmetic is the same code, so both
+// instances are bit-exact against the plain version.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -90,7 +98,9 @@ __device__ bool syndrome_ok(const __nv_bfloat16* app, const int* layer_off,
   return __syncthreads_and(ok) != 0;
 }
 
-template <int D>
+// kGlobalC2v: c2v lives in c2v_scratch[cb][n_edges*z] (device memory)
+// instead of behind app in shared memory.
+template <int D, bool kGlobalC2v>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 ldpc_decode_kernel(const float* __restrict__ llr, long long stride,
                    int8_t* __restrict__ bits, uint8_t* __restrict__ ok,
@@ -98,12 +108,15 @@ ldpc_decode_kernel(const float* __restrict__ llr, long long stride,
                    const int* __restrict__ edge_col,
                    const int* __restrict__ edge_shift, int nof_layers, int z,
                    int n_used, int k, int n_edges, int nof_steps,
-                   int sweeps_per_step, float scale) {
+                   int sweeps_per_step, float scale,
+                   __nv_bfloat16* __restrict__ c2v_scratch) {
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* app = reinterpret_cast<__nv_bfloat16*>(smem);  // [n_used*z]
-  __nv_bfloat16* c2v = app + static_cast<size_t>(n_used) * z;    // [n_edges*z]
   const int j = threadIdx.x;
   const size_t cb = blockIdx.x;
+  __nv_bfloat16* c2v =                                            // [n_edges*z]
+      kGlobalC2v ? c2v_scratch + cb * static_cast<size_t>(n_edges) * z
+                 : app + static_cast<size_t>(n_used) * z;
 
   const float* in = llr + cb * static_cast<size_t>(stride);
   for (int i = j; i < n_used * z; i += blockDim.x)
@@ -133,25 +146,43 @@ ldpc_decode_kernel(const float* __restrict__ llr, long long stride,
   if (j == 0) ok[cb] = done ? 1 : 0;
 }
 
-template <int D>
+template <int D, bool kGlobalC2v>
 int launch(const void* llr, long long stride, void* bits, void* ok, int batch,
            const void* layer_off, const void* edge_col,
            const void* edge_shift, int nof_layers, int z, int n_used, int k,
            int n_edges, int nof_steps, int sweeps_per_step, float scale,
-           cudaStream_t stream) {
+           void* c2v_scratch, cudaStream_t stream) {
   const size_t smem =
-      static_cast<size_t>(n_used + n_edges) * z * sizeof(__nv_bfloat16);
+      static_cast<size_t>(n_used + (kGlobalC2v ? 0 : n_edges)) * z *
+      sizeof(__nv_bfloat16);
   cudaError_t err = cudaFuncSetAttribute(
-      ldpc_decode_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      ldpc_decode_kernel<D, kGlobalC2v>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int threads = (z + 31) / 32 * 32;
-  ldpc_decode_kernel<D><<<batch, threads, smem, stream>>>(
+  ldpc_decode_kernel<D, kGlobalC2v><<<batch, threads, smem, stream>>>(
       static_cast<const float*>(llr), stride, static_cast<int8_t*>(bits),
       static_cast<uint8_t*>(ok), static_cast<const int*>(layer_off),
       static_cast<const int*>(edge_col), static_cast<const int*>(edge_shift),
-      nof_layers, z, n_used, k, n_edges, nof_steps, sweeps_per_step, scale);
+      nof_layers, z, n_used, k, n_edges, nof_steps, sweeps_per_step, scale,
+      static_cast<__nv_bfloat16*>(c2v_scratch));
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_variant(const void* llr, long long stride, void* bits, void* ok,
+                   int batch, const void* layer_off, const void* edge_col,
+                   const void* edge_shift, int nof_layers, int z, int n_used,
+                   int k, int n_edges, int nof_steps, int sweeps_per_step,
+                   float scale, void* c2v_scratch, cudaStream_t stream) {
+  if (c2v_scratch != nullptr)
+    return launch<D, true>(llr, stride, bits, ok, batch, layer_off, edge_col,
+                           edge_shift, nof_layers, z, n_used, k, n_edges,
+                           nof_steps, sweeps_per_step, scale, c2v_scratch,
+                           stream);
+  return launch<D, false>(llr, stride, bits, ok, batch, layer_off, edge_col,
+                          edge_shift, nof_layers, z, n_used, k, n_edges,
+                          nof_steps, sweeps_per_step, scale, nullptr, stream);
 }
 
 }  // namespace
@@ -159,6 +190,8 @@ int launch(const void* llr, long long stride, void* bits, void* ok, int batch,
 // llr [batch, >= n_used*z] float32 with row stride `stride` elements; bits
 // [batch, k*z] int8; ok [batch] bool; layer_off [nof_layers+1], edge_col and
 // edge_shift [n_edges] int32 on the device (compacted layer schedule).
+// c2v_scratch: null keeps c2v in shared memory; else [batch, n_edges*z] bf16
+// device scratch for c2v (the kernel clears it).
 // Runs up to nof_steps x (sweeps_per_step sweeps, then the syndrome check).
 // Returns cudaGetLastError().
 extern "C" int ldpc_decode(const void* llr, long long stride, void* bits,
@@ -166,17 +199,20 @@ extern "C" int ldpc_decode(const void* llr, long long stride, void* bits,
                            const void* edge_col, const void* edge_shift,
                            int nof_layers, int z, int n_used, int k,
                            int n_edges, int d_max, int nof_steps,
-                           int sweeps_per_step, float scale, void* stream) {
+                           int sweeps_per_step, float scale,
+                           void* c2v_scratch, void* stream) {
   if (batch <= 0) return 0;
   if (z <= 0 || z > kMaxThreads) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d_max <= 10)
-    return launch<10>(llr, stride, bits, ok, batch, layer_off, edge_col,
-                      edge_shift, nof_layers, z, n_used, k, n_edges, nof_steps,
-                      sweeps_per_step, scale, s);
+    return launch_variant<10>(llr, stride, bits, ok, batch, layer_off,
+                              edge_col, edge_shift, nof_layers, z, n_used, k,
+                              n_edges, nof_steps, sweeps_per_step, scale,
+                              c2v_scratch, s);
   if (d_max <= 19)
-    return launch<19>(llr, stride, bits, ok, batch, layer_off, edge_col,
-                      edge_shift, nof_layers, z, n_used, k, n_edges, nof_steps,
-                      sweeps_per_step, scale, s);
+    return launch_variant<19>(llr, stride, bits, ok, batch, layer_off,
+                              edge_col, edge_shift, nof_layers, z, n_used, k,
+                              n_edges, nof_steps, sweeps_per_step, scale,
+                              c2v_scratch, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,6 +1,6 @@
 """Zero-forcing equalisers with post-equalisation noise variance.
 
-Counterpart of ``zf_1xn`` and ``zf_nx2`` in
+Counterpart of ``zf_1xn``, ``zf_nx2`` and ``zf_nx4`` in
 ``srsran_project_23_5_tpu/ops/equalizer.py``.
 """
 from __future__ import annotations
@@ -44,3 +44,56 @@ def zf_nx2(y: torch.Tensor, h: torch.Tensor, noise_var: torch.Tensor
     nv = torch.as_tensor(noise_var, device=y.device)[..., None]
     return (torch.stack([x0, x1], dim=-2),
             torch.stack([nv * a11 / det, nv * a00 / det], dim=-2))
+
+
+def zf_nx4(y: torch.Tensor, h: torch.Tensor, noise_var: torch.Tensor
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """N×4 MIMO zero-forcing, N ≥ 4 rx ports: x̂ = (HᴴH)⁻¹Hᴴy per RE with the
+    4×4 Hermitian Gram matrix G = [[A, B], [Bᴴ, C]] inverted blockwise
+    through the Schur complement S = C − BᴴA⁻¹B, every step an elementwise
+    complex multiply-add over the RE axis.
+
+    y: [..., nrx, n_re]; h: [..., nrx, 4, n_re]; noise_var broadcastable
+    to [...].  Returns (x_hat [..., 4, n_re], post_noise_var [..., 4, n_re]).
+    """
+    hs = [h[..., i, :] for i in range(4)]                 # [..., nrx, n_re]
+    g = {(i, j): (torch.conj(hs[i]) * hs[j]).sum(dim=-2)
+         for i in range(4) for j in range(i, 4)}
+    b = [(torch.conj(hs[i]) * y).sum(dim=-2) for i in range(4)]
+    g00, g11 = g[(0, 0)].real, g[(1, 1)].real
+    g22, g33 = g[(2, 2)].real, g[(3, 3)].real
+    g01, g23 = g[(0, 1)], g[(2, 3)]
+    b00, b01v, b10, b11v = g[(0, 2)], g[(0, 3)], g[(1, 2)], g[(1, 3)]
+    # A⁻¹ (2×2 Hermitian)
+    det_a = torch.clamp(g00 * g11 - g01.abs() ** 2, min=1e-12)
+    i00, i11 = g11 / det_a, g00 / det_a
+    i01 = -g01 / det_a
+    # T = A⁻¹B
+    t00 = i00 * b00 + i01 * b10
+    t01 = i00 * b01v + i01 * b11v
+    t10 = torch.conj(i01) * b00 + i11 * b10
+    t11 = torch.conj(i01) * b01v + i11 * b11v
+    # S = C − BᴴT (Hermitian)
+    s00 = g22 - (torch.conj(b00) * t00 + torch.conj(b10) * t10).real
+    s11 = g33 - (torch.conj(b01v) * t01 + torch.conj(b11v) * t11).real
+    s01 = g23 - (torch.conj(b00) * t01 + torch.conj(b10) * t11)
+    det_s = torch.clamp(s00 * s11 - s01.abs() ** 2, min=1e-12)
+    j00, j11 = s11 / det_s, s00 / det_s
+    j01 = -s01 / det_s
+    # u = A⁻¹b_a; v = b_b − Bᴴu; x_b = S⁻¹v; x_a = u − T x_b
+    u0 = i00 * b[0] + i01 * b[1]
+    u1 = torch.conj(i01) * b[0] + i11 * b[1]
+    v0 = b[2] - (torch.conj(b00) * u0 + torch.conj(b10) * u1)
+    v1 = b[3] - (torch.conj(b01v) * u0 + torch.conj(b11v) * u1)
+    x2 = j00 * v0 + j01 * v1
+    x3 = torch.conj(j01) * v0 + j11 * v1
+    x0 = u0 - (t00 * x2 + t01 * x3)
+    x1 = u1 - (t10 * x2 + t11 * x3)
+    # post noise var σ²·diag(G⁻¹); top block A⁻¹ + T S⁻¹ Tᴴ
+    d0 = i00 + (t00.abs() ** 2 * j00 + t01.abs() ** 2 * j11
+                + 2.0 * (t00 * j01 * torch.conj(t01)).real)
+    d1 = i11 + (t10.abs() ** 2 * j00 + t11.abs() ** 2 * j11
+                + 2.0 * (t10 * j01 * torch.conj(t11)).real)
+    nv = torch.as_tensor(noise_var, device=y.device)[..., None]
+    return (torch.stack([x0, x1, x2, x3], dim=-2),
+            torch.stack([nv * d0, nv * d1, nv * j00, nv * j11], dim=-2))

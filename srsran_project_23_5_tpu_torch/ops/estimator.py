@@ -1,14 +1,16 @@
 """Port channel estimation from comb-2 DM-RS pilots.
 
-Counterpart of ``estimate_comb2`` and ``estimate_comb2_occ2`` in
-``srsran_project_23_5_tpu/ops/estimator.py`` (least squares at the pilots,
-CDM despreading for two layers, average across DM-RS symbols, noise variance
-from the residuals, time-alignment derotation, and interpolation onto the
-allocation).  Per-symbol time interpolation is not ported.
+Counterpart of ``estimate_comb2``, ``estimate_comb2_occ2`` and
+``estimate_port`` in ``srsran_project_23_5_tpu/ops/estimator.py`` (least
+squares at the pilots, CDM despreading for two layers per CDM group, average
+across DM-RS symbols, noise variance from the residuals, time-alignment
+derotation, per-DM-RS-symbol estimates for time interpolation, and linear
+interpolation onto the allocation).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -24,6 +26,17 @@ class CombChannelEstimate:
     rsrp: torch.Tensor        # [...] |avg channel|^2 power
     # [...] delay in samples = ta_norm * nfft (single-layer estimate only)
     ta_norm: torch.Tensor | None = None
+    # [..., ndmrs, nsc_alloc] per-DM-RS-symbol estimates (time_interp)
+    h_dmrs: torch.Tensor | None = None
+
+
+@dataclasses.dataclass
+class ChannelEstimate:
+    """Estimate over the full grid (``estimate_port``)."""
+    h: torch.Tensor           # [..., nsym, nsc] complex64
+    noise_var: torch.Tensor   # [...]
+    epre: torch.Tensor
+    rsrp: torch.Tensor
 
 
 def _comb2_interp(p: torch.Tensor) -> torch.Tensor:
@@ -34,15 +47,16 @@ def _comb2_interp(p: torch.Tensor) -> torch.Tensor:
     return pair.reshape(*p.shape[:-1], 2 * p.shape[-1])
 
 
-def estimate_comb2(rx_pilots: torch.Tensor,
-                   tx_pilots: torch.Tensor) -> CombChannelEstimate:
+def estimate_comb2(rx_pilots: torch.Tensor, tx_pilots: torch.Tensor,
+                   time_interp: bool = False) -> CombChannelEstimate:
     """LS + average + structured linear interpolation for comb-2 pilots on a
     contiguous allocation (CDM group 0).
 
     rx_pilots: [..., ndmrs_sym, npilot] at allocation subcarriers 2k;
     tx_pilots broadcastable to it.  The delay ramp is estimated from the
     mean lag-1 pilot correlation, removed before the interpolation and
-    re-applied after it.
+    re-applied after it.  time_interp=True also returns the estimate of each
+    DM-RS symbol (h_dmrs) for interpolation across time.
     """
     lse = rx_pilots * torch.conj(tx_pilots) / (tx_pilots.abs() ** 2)
     ndmrs = lse.shape[-2]
@@ -67,19 +81,24 @@ def estimate_comb2(rx_pilots: torch.Tensor,
     sc_idx = torch.arange(2 * npil, dtype=torch.float32, device=p.device)
     rerot = torch.exp(1j * (phi[..., None] / 2.0) * sc_idx)
     h_alloc = _comb2_interp(p * derot) * rerot
+    h_dmrs = (_comb2_interp(lse * derot[..., None, :]) * rerot[..., None, :]
+              if time_interp else None)
     return CombChannelEstimate(h_alloc=h_alloc, noise_var=noise_var,
-                               epre=epre, rsrp=rsrp, ta_norm=ta_norm)
+                               epre=epre, rsrp=rsrp, ta_norm=ta_norm,
+                               h_dmrs=h_dmrs)
 
 
 def estimate_comb2_occ2(rx_pilots: torch.Tensor, tx_pilots: torch.Tensor,
                         sc_offset: int = 0) -> CombChannelEstimate:
-    """Two-layer CDM despread estimate (DM-RS type 1, CDM group 0).
+    """Two-layer CDM despread estimate (DM-RS type 1): CDM group 0 (ports
+    0/1, even comb) or, with sc_offset=1, CDM group 1 (ports 2/3, odd comb).
 
-    Ports 0/1 share the comb and are separated by the frequency OCC
-    [+1,+1] / [+1,-1] over consecutive pilot pairs.  rx_pilots:
-    [..., ndmrs_sym, npilot]; tx_pilots the port-0 (un-OCC'd) pilots.
-    Returns h_alloc [..., 2, nsc_alloc], the channel of each layer over the
-    allocation, and noise_var/epre/rsrp per leading index (no ta_norm).
+    The two ports of a group share the comb and are separated by the
+    frequency OCC [+1,+1] / [+1,-1] over consecutive pilot pairs.
+    rx_pilots: [..., ndmrs_sym, npilot]; tx_pilots the port-0 (un-OCC'd)
+    pilots.  Returns h_alloc [..., 2, nsc_alloc], the channel of each layer
+    over the allocation, and noise_var/epre/rsrp per leading index (no
+    ta_norm).
     """
     lse = rx_pilots * torch.conj(tx_pilots) / (tx_pilots.abs() ** 2)
     even = lse[..., 0::2]
@@ -107,6 +126,31 @@ def estimate_comb2_occ2(rx_pilots: torch.Tensor, tx_pilots: torch.Tensor,
                                epre=epre, rsrp=rsrp)
 
 
+def estimate_port(rx_pilots: torch.Tensor, tx_pilots: torch.Tensor,
+                  sc_idx: np.ndarray, nsc: int, nsym: int) -> ChannelEstimate:
+    """LS + average + linear-interpolation estimate over the whole grid.
+
+    rx_pilots: [..., ndmrs_sym, npilot]; tx_pilots broadcastable to it;
+    sc_idx: the pilot subcarriers (a regular comb).  Returns h [..., nsym,
+    nsc], constant in time (average across the DM-RS symbols).
+    """
+    lse = rx_pilots * torch.conj(tx_pilots) / (tx_pilots.abs() ** 2)
+    ndmrs = lse.shape[-2]
+    h_avg = lse.mean(dim=-2)                                 # [..., npilot]
+    if ndmrs > 1:
+        resid = lse - h_avg[..., None, :]
+        noise_var = ((resid.abs() ** 2).mean(dim=(-1, -2))
+                     * ndmrs / (ndmrs - 1))
+    else:
+        diff = lse[..., 0, 1:] - lse[..., 0, :-1]
+        noise_var = 0.5 * (diff.abs() ** 2).mean(dim=-1)
+    epre = (rx_pilots.abs() ** 2).mean(dim=(-1, -2))
+    rsrp = (h_avg.abs() ** 2).mean(dim=-1)
+    h_full = _interp_freq(h_avg, sc_idx, nsc)
+    h = h_full[..., None, :].expand(*h_full.shape[:-1], nsym, nsc)
+    return ChannelEstimate(h=h, noise_var=noise_var, epre=epre, rsrp=rsrp)
+
+
 def _interp_freq(h_pilot: torch.Tensor, sc_idx: np.ndarray,
                  nsc: int) -> torch.Tensor:
     """Linear interpolation + edge extrapolation onto [0, nsc) from a
@@ -118,6 +162,17 @@ def _interp_freq(h_pilot: torch.Tensor, sc_idx: np.ndarray,
     if len(sc) < 2 or np.any(steps != steps[0]):
         raise ValueError("frequency interpolation needs a regular pilot comb")
     return _interp_freq_regular(h_pilot, int(sc[0]), int(steps[0]), nsc)
+
+
+@functools.lru_cache(maxsize=64)
+def _edge_weights(first: int, step: int, ntail: int, device: torch.device):
+    """Extrapolation weights of the head and tail subcarriers: one op per
+    edge however wide it is (a PUCCH resource extrapolates over the whole
+    carrier)."""
+    return (torch.tensor([(t - first) / step for t in range(first)],
+                         dtype=torch.float32, device=device),
+            torch.tensor([t / step for t in range(ntail)],
+                         dtype=torch.float32, device=device))
 
 
 def _interp_freq_regular(h_pilot: torch.Tensor, first: int, step: int,
@@ -137,7 +192,7 @@ def _interp_freq_regular(h_pilot: torch.Tensor, first: int, step: int,
                                                (npil - 1) * step)
     p0, p1 = h_pilot[..., 0:1], h_pilot[..., 1:2]
     pm, pe = h_pilot[..., -2:-1], h_pilot[..., -1:]
-    head = [p0 + ((t - first) / step) * (p1 - p0) for t in range(first)]
     ntail = nsc - first - step * (npil - 1)
-    tail = [pe + (t / step) * (pe - pm) for t in range(ntail)]
-    return torch.cat([*head, body, *tail], dim=-1)
+    w_head, w_tail = _edge_weights(first, step, ntail, h_pilot.device)
+    return torch.cat([p0 + w_head * (p1 - p0), body, pe + w_tail * (pe - pm)],
+                     dim=-1)

@@ -18,7 +18,10 @@ decoder_pallas.py) with its semantics, which both versions here copy exactly:
 
 ``decode`` takes ``decode_plain`` only for a CPU tensor; for a CUDA tensor it
 launches the kernel (one CTA per codeblock, all codeblocks in one launch) or
-raises.  ``decode.launches`` counts kernel launches.
+raises.  Where app + c2v of a codeblock fit in shared memory the kernel keeps
+both there; otherwise (the full BG1 graph at Z > 302, i.e. every rv > 0 or
+HARQ-combined decode at Z = 320/352/384) it keeps app there and c2v in a
+global scratch buffer.  ``decode.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -68,7 +71,8 @@ def _schedule(base_graph: int, z: int, nof_used_blocks: int | None):
 
 def state_bytes(base_graph: int, z: int,
                 nof_used_blocks: int | None = None) -> int:
-    """Shared memory one codeblock's app + c2v take in the kernel (bf16)."""
+    """Bytes one codeblock's app + c2v take in the kernel (bf16); above
+    SMEM_LIMIT the kernel moves c2v to device memory."""
     _, n, _, n_edges = _schedule(base_graph, z, nof_used_blocks)
     return 2 * (n + n_edges) * z
 
@@ -169,11 +173,12 @@ def _graph_arrays(base_graph: int, z: int, nof_used_blocks: int | None,
 
 def decode(llr: torch.Tensor, base_graph: int, lifting_size: int,
            nof_iterations: int = 6, check_period: int = 1,
-           nof_used_blocks: int | None = None
+           nof_used_blocks: int | None = None, _global_c2v: bool = False
            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Decode a batch of codeblocks; same contract as
     decoder_pallas.decode: llr [batch, N_full*Zc] float32 →
-    (bits [batch, K] int8, ok [batch] bool)."""
+    (bits [batch, K] int8, ok [batch] bool).  ``_global_c2v`` forces the
+    global-c2v instance on a shape that fits in shared memory (tests)."""
     if llr.device.type == "cpu":
         return decode_plain(llr, base_graph, lifting_size, nof_iterations,
                             check_period, nof_used_blocks)
@@ -187,11 +192,8 @@ def decode(llr: torch.Tensor, base_graph: int, lifting_size: int,
         raise ValueError(f"decoder takes float32 [batch, >= {n * z}] rows "
                          f"with unit stride, got {llr.dtype} "
                          f"{tuple(llr.shape)} strides {llr.stride()}")
-    smem = state_bytes(base_graph, z, nof_used_blocks)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"decoder state of {smem} B per codeblock (BG"
-                         f"{base_graph}, Z={z}, {n} blocks, {n_edges} edges) "
-                         f"exceeds the {SMEM_LIMIT} B shared-memory limit")
+    global_c2v = (_global_c2v
+                  or state_bytes(base_graph, z, nof_used_blocks) > SMEM_LIMIT)
     steps = _steps(nof_iterations, check_period)
     batch = llr.shape[0]
     bits = torch.empty((batch, k * z), dtype=torch.int8, device=llr.device)
@@ -200,11 +202,15 @@ def decode(llr: torch.Tensor, base_graph: int, lifting_size: int,
         return bits, ok
     (layer_off, cols, shifts), nof_layers, d_max = _graph_arrays(
         base_graph, z, nof_used_blocks, llr.device)
+    # c2v scratch of the global instance; the kernel clears it
+    c2v = (torch.empty((batch, n_edges * z), dtype=torch.bfloat16,
+                       device=llr.device) if global_c2v else None)
     stream = torch.cuda.current_stream(llr.device).cuda_stream
     err = kernels.library().lib.ldpc_decode(
         llr.data_ptr(), llr.stride(0), bits.data_ptr(), ok.data_ptr(), batch,
         layer_off.data_ptr(), cols.data_ptr(), shifts.data_ptr(), nof_layers,
-        z, n, k, n_edges, d_max, steps, check_period, SCALE, stream)
+        z, n, k, n_edges, d_max, steps, check_period, SCALE,
+        c2v.data_ptr() if c2v is not None else None, stream)
     kernels.check(err, "ldpc_decode launch")
     decode.launches += 1
     return bits, ok

@@ -34,7 +34,7 @@ _SIGNATURES = {
     "ldpc_encode": (_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                     _P),
     "ldpc_decode": (_P, ctypes.c_longlong, _P, _P, _I, _P, _P, _P, _I, _I, _I,
-                    _I, _I, _I, _I, _I, ctypes.c_float, _P),
+                    _I, _I, _I, _I, _I, ctypes.c_float, _P, _P),
 }
 
 

@@ -11,10 +11,13 @@ import numpy as np
 import pytest
 import torch
 
-from srsran_project_23_5_tpu_torch.models import gnb_flagship, gnb_mixed
+from srsran_project_23_5_tpu_torch.fapi import messages as fapi
+from srsran_project_23_5_tpu_torch.models import (fapi_carrier, gnb_flagship,
+                                                  gnb_mixed)
 from srsran_project_23_5_tpu_torch.ops.ldpc import (decoder_cuda,
                                                     encoder_cuda, graphs)
 from srsran_project_23_5_tpu_torch.phy import pipeline
+from srsran_project_23_5_tpu_torch.phy.upper import slot_programs, upper_phy
 
 torch.set_num_threads(1)
 
@@ -83,10 +86,110 @@ def test_decoder_kernel_matches_plain(cuda, bg, zc, batch, snr, n_used):
 
 
 @pytest.mark.cuda
-def test_decoder_kernel_refuses_oversized_state(cuda):
-    llr = torch.zeros((2, 68 * 384), device=cuda)
-    with pytest.raises(ValueError, match="294912 B"):
-        decoder_cuda.decode(llr, 1, 384)
+@pytest.mark.parametrize("zc", [320, 352, 384])
+@pytest.mark.parametrize("snr", [1.5, np.linspace(-1.0, 2.5, 24)])
+def test_decoder_kernel_full_bg1_graph_matches_plain(cuda, zc, snr):
+    """The full BG1 graph (rv>0 and HARQ-combined decodes) at the lifting
+    sizes whose state exceeds shared memory: c2v in device memory."""
+    assert decoder_cuda.state_bytes(1, zc) > decoder_cuda.SMEM_LIMIT
+    rng = np.random.default_rng(zc)
+    msg = rng.integers(0, 2, size=(24, 22 * zc)).astype(np.int8)
+    cw = encoder_cuda.encode_plain(torch.from_numpy(msg), 1, zc).numpy()
+    llr = torch.from_numpy(_noisy_llr(rng, cw, snr, zc)).to(cuda)
+    before = decoder_cuda.decode.launches
+    bits, ok = decoder_cuda.decode(llr, 1, zc)
+    w_bits, w_ok = decoder_cuda.decode_plain(llr, 1, zc)
+    torch.cuda.synchronize()
+    assert decoder_cuda.decode.launches == before + 1
+    assert torch.equal(ok, w_ok) and torch.equal(bits, w_bits)
+    if np.ndim(snr) == 0:
+        assert bool(ok.all()) and np.array_equal(bits.cpu().numpy(), msg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bg,zc,n_used,snr", [(1, 384, 35, (2.0, 6.0)),
+                                              (2, 384, 52, (-5.0, -1.0)),
+                                              (1, 208, None, (-1.0, 2.5))])
+def test_decoder_global_c2v_matches_shared(cuda, bg, zc, n_used, snr):
+    """Both kernel instances on shapes that fit shared memory, with mixed
+    convergence."""
+    rng = np.random.default_rng(13)
+    g = graphs.lifted_graph(bg, zc)
+    msg = rng.integers(0, 2, size=(32, g.nof_msg_blocks * zc)).astype(np.int8)
+    cw = encoder_cuda.encode_plain(torch.from_numpy(msg), bg, zc).numpy()
+    llr = _noisy_llr(rng, cw, np.linspace(*snr, 32), zc)
+    if n_used is not None:
+        llr[:, n_used * zc:] = 0.0
+    llr = torch.from_numpy(llr).to(cuda)
+    shared = decoder_cuda.decode(llr, bg, zc, nof_used_blocks=n_used)
+    glob = decoder_cuda.decode(llr, bg, zc, nof_used_blocks=n_used,
+                               _global_c2v=True)
+    torch.cuda.synchronize()
+    rows = int(((shared[0] != glob[0]).any(dim=1)
+                | (shared[1] != glob[1])).sum())
+    assert rows == 0, f"{rows} of 32 rows differ between the instances"
+    n_ok = int(shared[1].sum())
+    assert 0 < n_ok < 32, f"{n_ok} of 32 converge: no mixed convergence"
+
+
+@pytest.mark.cuda
+def test_upper_phy_ul_slot_with_uci_and_harq_on_card_matches_cpu(cuda):
+    """The tiny FAPI carrier's full UL slot (4-layer PUSCH, PUSCH with UCI,
+    PUCCH F1/F2, PRACH) and a HARQ pair (rv=0 fails, rv=2 combined passes)
+    on the card and on the CPU: the same indications and UCI."""
+    car = fapi_carrier.tiny_carrier()
+    gen = torch.Generator().manual_seed(14)
+    rng = np.random.default_rng(14)
+    reqs = [fapi_carrier.ul_request(car, 0),
+            fapi_carrier.ul_request(car, 1, full=False, harq_process=15),
+            fapi_carrier.ul_request(car, 2, full=False, harq_process=15,
+                                    rv=2, new_data=False)]
+    pays = [fapi_carrier.ul_payloads(r, rng) for r in reqs[:2]]
+    pays.append(pays[1])
+    slots = [fapi_carrier.uplink(r, p, car, gen,
+                                 snr_db=None if i == 0 else car.harq_snr_db)
+             for i, (r, p) in enumerate(zip(reqs, pays))]
+    phys = {d: upper_phy.UpperPhy(car.upper_phy, d) for d in ("cpu", cuda)}
+    out = {}
+    for d, phy in phys.items():
+        out[d] = []
+        for i, (req, (rx, prach_rx)) in enumerate(zip(reqs, slots)):
+            d0 = decoder_cuda.decode.launches
+            inds = phy.process_ul_slot(
+                rx.to(d), req, slot_count=i,
+                prach_rx=None if prach_rx is None else prach_rx.to(d))
+            if d == cuda:
+                groups = slot_programs.decode_groups(
+                    slot_programs.signature(req)[0])
+                assert decoder_cuda.decode.launches - d0 == len(groups)
+            out[d].append((inds, phy.last_ul_slot["pusch"]))
+    for i, ((g, g_o), (c, c_o)) in enumerate(zip(out[cuda], out["cpu"])):
+        assert [type(x) for x in g] == [type(x) for x in c]
+        for a, b in zip(g, c):
+            for k, v in vars(b).items():
+                if k in ("sinr_db", "ta_samples"):
+                    assert abs(getattr(a, k) - v) < 0.1, (i, k)
+                elif k == "metric":
+                    assert abs(getattr(a, k) - v) <= 1e-3 * max(abs(v), 1.0)
+                elif k == "preambles":
+                    assert [p[0] for p in getattr(a, k)] == [p[0] for p in v]
+                elif isinstance(v, np.ndarray):
+                    assert np.array_equal(getattr(a, k), v), (i, k)
+                else:
+                    assert getattr(a, k) == v, (i, k)
+        for a, b in zip(g_o, c_o):
+            # the bits of a TB that fails its CRC depend on float rounding
+            for f in a:
+                if (f.endswith(("_bits", "_valid", "_crc_ok"))
+                        and (f != "tb_bits" or b["tb_crc_ok"])):
+                    assert np.array_equal(a[f], b[f]), (i, f)
+    checks = fapi_carrier.ul_checks(car, reqs[0], pays[0], out[cuda][0][0],
+                                    out[cuda][0][1])
+    assert all(checks.values()), checks
+    crc = [[x.tb_crc_ok for x in inds if isinstance(x, fapi.CrcIndication)]
+           for inds, _ in out[cuda][1:]]
+    assert crc == [[False], [True]]
+    assert len(phys[cuda].softbuffers) == 0
 
 
 @pytest.mark.cuda

@@ -131,7 +131,9 @@ def test_from_jax_mixed_round_trip(name):
                     else tmixed.default_mixed())
     for ue in ("pdsch0", "pdsch1", "pusch0", "pusch1"):
         jsh, tsh = getattr(jcfg, ue), getattr(tcfg, ue)
-        assert sch.ShConfig(**dataclasses.asdict(tsh)) == jsh
+        fields = dataclasses.asdict(tsh)
+        fields["uci"] = ulsch.UciOnPusch(**fields["uci"])
+        assert sch.ShConfig(**fields) == jsh
         for attr in ("nof_bits", "cb_lengths", "symbol_plan",
                      "reserved_keep_offsets", "nof_data_re"):
             assert getattr(tsh, attr) == getattr(jsh, attr), (ue, attr)
@@ -162,17 +164,15 @@ def test_from_jax_mixed_round_trip(name):
         c, pdcch_dl=dataclasses.replace(c.pdcch_dl, nof_symbols=2)),
      "nof_symbols"),
     (lambda c: dataclasses.replace(
-        c, pusch0=dataclasses.replace(c.pusch0, nof_layers=4)), "nof_layers"),
-    (lambda c: dataclasses.replace(
-        c, pusch1=dataclasses.replace(
-            c.pusch1, uci=ulsch.UciOnPusch(g_harq_ack=12))), "uci"),
-    (lambda c: dataclasses.replace(
-        c, pdsch1=dataclasses.replace(c.pdsch1, time_interp=True)),
-     "time_interp"),
-    (lambda c: dataclasses.replace(
-        c, pdsch1=dataclasses.replace(c.pdsch1,
-                                      vrb_to_prb_interleaved=True)),
-     "vrb_to_prb_interleaved")])
+        c, pusch0=dataclasses.replace(c.pusch0, nof_layers=3)), "nof_layers"),
+    pytest.param(lambda c: dataclasses.replace(c, tdl_gains=(1.0, 0.5)),
+                 "tdl_gains", id="tdl_gains"),
+    pytest.param(lambda c: dataclasses.replace(
+        c, pdcch_dl=dataclasses.replace(c.pdcch_dl, interleaved=True)),
+        "interleaved", id="pdcch_dl-interleaved"),
+    pytest.param(lambda c: dataclasses.replace(
+        c, pdcch_ul=dataclasses.replace(c.pdcch_ul, nof_symbols=3)),
+        "nof_symbols", id="pdcch_ul-nof_symbols")])
 def test_from_jax_mixed_refuses_unported_fields(over, field):
     with pytest.raises(NotImplementedError, match=f"\\.{field}"):
         convert.from_jax_mixed(over(gnb_mixed.tiny_mixed()))

@@ -19,8 +19,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from srsran_project_23_5_tpu.models import gnb_flagship
-from srsran_project_23_5_tpu.phy.upper import sch, ulsch
+from srsran_project_23_5_tpu.models import gnb_flagship, gnb_mixed
+from srsran_project_23_5_tpu.phy.upper import sch, ulsch, upper_phy
 from srsran_project_23_5_tpu.ran import numerology
 from srsran_project_23_5_tpu_torch import convert
 from srsran_project_23_5_tpu_torch.models import gnb_flagship as tflagship
@@ -153,7 +153,9 @@ def test_convert_round_trip(name):
     assert (tcfg.mu, tcfg.nfft, tcfg.nof_prb, tcfg.nsc) == (
         jcfg.mu, jcfg.nfft, jcfg.nof_prb, jcfg.nsc)
     # back to the JAX class from the port's fields gives the original
-    assert sch.ShConfig(**dataclasses.asdict(tcfg.sh)) == jcfg.sh
+    fields = dataclasses.asdict(tcfg.sh)
+    fields["uci"] = ulsch.UciOnPusch(**fields["uci"])
+    assert sch.ShConfig(**fields) == jcfg.sh
     for attr in ("nof_bits", "code_rate", "cb_lengths", "scrambling_cinit",
                  "symbol_plan", "sc_bounds"):
         assert getattr(tcfg.sh, attr) == getattr(jcfg.sh, attr), attr
@@ -163,14 +165,30 @@ def test_convert_round_trip(name):
         jcfg.sh.dmrs_cinit(l) for l in range(14)]
 
 
-@pytest.mark.parametrize("field,value", [
-    ("nof_layers", 4), ("uci", ulsch.UciOnPusch(g_harq_ack=12)),
-    ("nof_layers", 3), ("vrb_to_prb_interleaved", True),
-    ("time_interp", True)])
-def test_convert_refuses_unported_fields(field, value):
-    jsh = dataclasses.replace(gnb_flagship.tiny_carrier().sh, **{field: value})
-    with pytest.raises(NotImplementedError, match=f"ShConfig.{field}"):
-        convert.from_jax_sh(jsh)
+def _unported(cls, field, value):
+    """A JAX object with one still-unported field set, and its converter."""
+    if cls == "ShConfig":
+        return (dataclasses.replace(gnb_flagship.tiny_carrier().sh,
+                                    **{field: value}), convert.from_jax_sh)
+    if cls == "MixedSlotConfig":
+        return (dataclasses.replace(gnb_mixed.tiny_mixed(), **{field: value}),
+                convert.from_jax_mixed)
+    if cls == "PdcchConfig":
+        return (dataclasses.replace(gnb_mixed.tiny_mixed().pdcch_dl,
+                                    **{field: value}), convert.from_jax_pdcch)
+    return (upper_phy.UpperPhyConfig(**{field: value}),
+            convert.from_jax_upper_phy)
+
+
+@pytest.mark.parametrize("cls,field,value", [
+    ("ShConfig", "nof_layers", 3), ("MixedSlotConfig", "tdl_delays", (0, 3)),
+    ("MixedSlotConfig", "ue_decode_dl", True),
+    ("PdcchConfig", "interleaved", True), ("PdcchConfig", "nof_symbols", 2),
+    ("UpperPhyConfig", "sanitize", True)])
+def test_convert_refuses_unported_fields(cls, field, value):
+    obj, conv = _unported(cls, field, value)
+    with pytest.raises(NotImplementedError, match=f"{cls}.{field}"):
+        conv(obj)
 
 
 def test_port_imports_no_jax():
@@ -180,6 +198,9 @@ def test_port_imports_no_jax():
             "import srsran_project_23_5_tpu_torch.phy.pipeline\n"
             "import srsran_project_23_5_tpu_torch.convert\n"
             "import srsran_project_23_5_tpu_torch.utils.kernels\n"
+            "import srsran_project_23_5_tpu_torch.phy.upper.upper_phy\n"
+            "import srsran_project_23_5_tpu_torch.phy.upper.slot_programs\n"
+            "import srsran_project_23_5_tpu_torch.fapi.messages\n"
             "bad = sorted(m for m in sys.modules if m == 'jax'\n"
             "             or m.startswith(('jax.', 'jaxlib'))\n"
             "             or m.split('.')[0] == 'srsran_project_23_5_tpu')\n"
