@@ -9,15 +9,17 @@ Phases, one line each:
 2. build   — builds both LDPC kernels from ``csrc/`` (nvcc, sm_90a);
 3. encoder — kernel vs ``encode_plain`` on the card, bit for bit, at the
    flagship shape (BG2 Z=384, 88 codeblocks), at the mixed slot's four
-   shapes (BG1 Z=384 x128, x56, x136; BG1 Z=352 x64), the tiny carrier's
-   Z=36 and a batch that is not a multiple of 8;
+   shapes (BG1 Z=384 x128, x56, x136; BG1 Z=352 x64), at lifting sizes
+   that 32 does not divide (Z=36, 208, 15, 104) and a batch that is not a
+   multiple of 8;
 4. decoder — kernel vs ``decode_plain`` on the card, bits and ok
    identical, at the flagship shape and the mixed slot's two shapes (BG1
    Z=384 n_used 35 x136, BG1 Z=352 n_used 36 x64), each converging and with
-   mixed convergence, on truncated graphs, at Z=36, and on the full BG1
-   graph at Z=320/352/384 (c2v in device memory); the shared-memory and
-   global-c2v instances give the same bits and ok on three shapes that fit
-   both, each at mixed-convergence SNRs and over a wide SNR sweep;
+   mixed convergence, on truncated graphs, at Z=36, on the full BG1 graph at
+   Z=320/352/384 and on the full BG2 graph at Z=352/384; the CTAs per SM at
+   each main-path shape, and the phase split of one CTA (LLR load + c2v
+   clear, sweeps, syndrome, bit write) from the kernel's diagnostic
+   instance at x136 n_used 35 and on the full graph at Z=384 x8;
 5. slice   — ``SlotPipeline`` on the 273-PRB flagship carrier, 8 slots per
    batch, depth 2, 20 dB: warmup + submits + drain; every TB CRC ok, mean
    SINR within 1.5 dB of 20, both kernels launched in that run; decoded bits
@@ -32,7 +34,8 @@ Phases, one line each:
    warmup + submits + drain; every slot ok, mean UL SINR within 1.0 dB of
    20, 4 encoder and 2 decoder launches per batch; how many slots passed
    each check; the wall time of each stage of a batch; kernel and plain
-   times at the mixed shapes;
+   times at the mixed shapes, and the decoder's phase split on the mixed
+   slot's own LLRs;
 8. mixed-cpu — a ``tiny_mixed`` batch of 2 on the card against the same
    payloads and noise through the plain versions on the CPU: every verdict
    and the decoded bits equal, SINRs within 0.1 dB;
@@ -53,12 +56,15 @@ Phases, one line each:
    Z=384 passes and releases the softbuffer); three programs for the two
    mixes and the retransmission; ms per DL and UL slot, and the
    full-graph decoder against ``decode_plain`` and the truncated graph
-   (both checked against ``decode_plain`` first);
+   (both checked against ``decode_plain`` first), and its phase split;
 11. upper-profile — torch.profiler over two DL slots and two full-mix UL
    slots of the upper PHY.
 
-Then one JSON line with the kernels and, last, the result line.  Any
-failure raises and exits non-zero.
+Every timed shape prints the kernel's device time, its bound (the larger
+of bytes over 3.35 TB/s and operations over 67 TFLOP/s) and the share of
+it, and for the decoder the sweeps the inputs needed (counted by
+``decode_plain``).  Then one JSON line with the kernels and, last, the
+result line.  Any failure raises and exits non-zero.
 
     python3 chip_smoke.py          # from the repository root, one GPU
 """
@@ -102,18 +108,80 @@ def _check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def _time_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over reps launches (CUDA events), warm."""
+def _time_ms(fn, reps: int, queued: bool = False) -> float:
+    """Mean device time of fn() over reps launches (CUDA events), warm.
+    queued: hold the stream with a spin kernel while the host enqueues the
+    launches, so that a kernel shorter than its launch's host cost is timed
+    back to back on the device (fn must not synchronise)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(100_000_000)      # ~50 ms of SM clock
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# published H100 SXM peaks at 700 W
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+DEC_OPS_PER_EDGE_LANE = 12      # float32 ops per edge-lane per sweep
+
+
+def _bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """Least time (ms) the card could take: the larger of bytes over the
+    memory rate and operations over the float32 rate, and which it is."""
+    b, o = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return (b, "bytes") if b >= o else (o, "operations")
+
+
+def encoder_bound(bg: int, zc: int, batch: int) -> tuple[float, str]:
+    """Message bytes in, codeword bytes out; one XOR per edge-lane."""
+    g = graphs.lifted_graph(bg, zc)
+    edges = sum(len(c) for c in g.row_cols)
+    return _bound(batch * (g.nof_msg_blocks + g.nof_var_blocks) * zc,
+                  batch * edges * zc)
+
+
+def decoder_bound(llr: torch.Tensor, bg: int, zc: int, **kw
+                  ) -> tuple[float, str, torch.Tensor]:
+    """LLRs of the used blocks in, hard bits and ok out; 12 float32 ops per
+    edge-lane per sweep, for the sweeps each codeblock needs (counted by
+    the plain version on the same LLRs)."""
+    g, n, _, n_edges = decoder_cuda._schedule(bg, zc,
+                                              kw.get("nof_used_blocks"))
+    sweeps = decoder_cuda.sweeps_needed(llr, bg, zc, **kw).cpu()
+    batch = llr.shape[0]
+    ms, by = _bound(batch * (4 * n * zc + g.nof_msg_blocks * zc + 1),
+                    DEC_OPS_PER_EDGE_LANE * n_edges * zc * int(sweeps.sum()))
+    return ms, by, sweeps
+
+
+def _timed(kind: str, shape: str, fn, plain, reps: int, plain_reps: int,
+           bound: tuple) -> dict:
+    """One timed shape: the kernel (launches queued back to back) and its
+    plain version, with the bound and, for the decoder, the sweeps."""
+    rec = {"kind": kind, "shape": shape,
+           "ms": _time_ms(fn, reps, queued=True),
+           "plain_ms": _time_ms(plain, plain_reps),
+           "bound_ms": bound[0], "bound_by": bound[1]}
+    rec["share"] = rec["bound_ms"] / rec["ms"]
+    if len(bound) > 2:
+        rec["sweeps"] = [int(bound[2].min()), int(bound[2].max())]
+    return rec
+
+
+def _fmt(rec: dict) -> str:
+    sweeps = (f", sweeps {rec['sweeps'][0]}-{rec['sweeps'][1]}"
+              if "sweeps" in rec else "")
+    return (f"{rec['kind']} {rec['shape']} {rec['ms'] * 1e3:.1f} us (plain "
+            f"{rec['plain_ms']:.3f} ms; bound {rec['bound_ms'] * 1e3:.2f} us "
+            f"by {rec['bound_by']}, {100 * rec['share']:.1f}% of it{sweeps})")
 
 
 def _noisy_llr(rng, cw: torch.Tensor, snr_db, zc: int, device) -> torch.Tensor:
@@ -170,7 +238,7 @@ def phase_encoder(dev, card: str) -> float:
     gen = torch.Generator(device=dev).manual_seed(1)
     max_err = 0
     cases = [(2, 384, FLAGSHIP_CBS), *MIXED_ENC, (1, 384, 24), (2, 36, 16),
-             (2, 384, 13)]
+             (2, 384, 13), (1, 208, 5), (2, 15, 7), (2, 104, 9)]
     for bg, zc, batch in cases:
         k = graphs.lifted_graph(bg, zc).nof_msg_blocks * zc
         msg = torch.randint(0, 2, (batch, k), generator=gen, device=dev,
@@ -202,14 +270,17 @@ def phase_decoder(dev, card: str) -> float:
         ("BG1-truncated", 1, 384, 24, np.linspace(1.0, 5.0, 24), 40),
         ("BG2-truncated", 2, 384, 24, np.linspace(0.0, 4.0, 24), 20),
         ("Z36", 2, 36, 13, 3.0, None),
-        # the full BG1 graph of rv>0 and HARQ-combined decodes: c2v moves
-        # to device memory above Z=302
+        # the full graphs of rv>0 and HARQ-combined decodes
         *[(f"full-BG1-Z{z}{tag}", 1, z, 64, snr, None)
           for z in (320, 352, 384)
           for tag, snr in (("", 1.5), ("-mixed", np.linspace(-1.0, 2.5,
                                                               64)))],
+        *[(f"full-BG2-Z{z}{tag}", 2, z, 64, snr, None)
+          for z in (352, 384)
+          for tag, snr in (("", 2.0), ("-mixed", np.linspace(-5.0, -1.0,
+                                                              64)))],
     ]
-    max_err, notes = 0, []
+    max_err, notes, llrs = 0, [], {}
     for label, bg, zc, batch, snr, n_used in cases:
         k = graphs.lifted_graph(bg, zc).nof_msg_blocks * zc
         msg = torch.randint(0, 2, (batch, k), generator=gen, device=dev,
@@ -218,6 +289,7 @@ def phase_decoder(dev, card: str) -> float:
                          zc, dev)
         if n_used is not None:
             llr[:, n_used * zc:] = 0.0
+        llrs[label] = llr
         bits, ok = decoder_cuda.decode(llr, bg, zc, nof_used_blocks=n_used)
         w_bits, w_ok = decoder_cuda.decode_plain(llr, bg, zc,
                                                  nof_used_blocks=n_used)
@@ -226,44 +298,57 @@ def phase_decoder(dev, card: str) -> float:
         _check(torch.equal(ok, w_ok) and torch.equal(bits, w_bits),
                f"decoder kernel != plain for {label}")
         n_ok = int(ok.sum())
-        if label in ("flagship", "mixed-BG1-Z384", "mixed-BG1-Z352",
-                     "full-BG1-Z320", "full-BG1-Z352", "full-BG1-Z384"):
+        if label in ("flagship", "mixed-BG1-Z384", "mixed-BG1-Z352") or (
+                label.startswith("full-") and not label.endswith("-mixed")):
             _check(n_ok == batch and torch.equal(bits, msg),
                    f"{label} decode did not converge")
         if label.endswith("-mixed"):
             _check(0 < n_ok < batch, f"no mixed convergence for {label} "
                    f"({n_ok})")
         notes.append(f"{label} {n_ok}/{batch} ok")
-    # the global-c2v instance against the shared-memory one on shapes that
-    # fit both (the mixed slot's pusch0 shape, the flagship's, a mid Z),
-    # each at its mixed-convergence SNRs and over a wide sweep
-    same = []
-    for bg, zc, batch, n_used, snr in (
-            (1, 384, 136, 35, (2.0, 6.0)), (1, 384, 136, 35, (-4.0, 8.0)),
-            (2, 384, 88, 52, (-5.0, -1.0)), (2, 384, 88, 52, (-6.0, 6.0)),
-            (1, 208, 64, None, (-1.0, 2.5)), (1, 208, 64, None, (-4.0, 8.0))):
-        k = graphs.lifted_graph(bg, zc).nof_msg_blocks * zc
-        msg = torch.randint(0, 2, (batch, k), generator=gen, device=dev,
-                            dtype=torch.int8)
-        llr = _noisy_llr(rng, encoder_cuda.encode_plain(msg, bg, zc),
-                         np.linspace(*snr, batch), zc, dev)
-        if n_used is not None:
-            llr[:, n_used * zc:] = 0.0
-        shared = decoder_cuda.decode(llr, bg, zc, nof_used_blocks=n_used)
-        glob = decoder_cuda.decode(llr, bg, zc, nof_used_blocks=n_used,
-                                   _global_c2v=True)
-        torch.cuda.synchronize()
-        rows = int(((shared[0] != glob[0]).any(dim=1)
-                    | (shared[1] != glob[1])).sum())
-        _check(rows == 0, f"global-c2v decoder != shared-memory decoder in "
-               f"{rows} rows at BG{bg} Z={zc} x{batch} SNR {snr}")
-        same.append(f"BG{bg} Z={zc} x{batch} n_used {n_used} SNR "
-                    f"{snr[0]:g}..{snr[1]:g} dB ({int(shared[1].sum())}/"
-                    f"{batch} ok)")
     print(f"[decoder] bit-exact (bits, ok) vs decode_plain: "
-          f"{'; '.join(notes)}; global-c2v == shared, 0 rows differ, at "
-          f"{'; '.join(same)} on {card}")
+          f"{'; '.join(notes)} on {card}")
+    # CTAs per SM at the main paths' decoder shapes (BG, Z, n_used)
+    occ = {f"BG{bg} Z={z} n_used {n}": decoder_cuda.ctas_per_sm(bg, z, n)
+           for bg, z, n in ((1, 384, 35), (1, 352, 36), (1, 384, 33),
+                            (2, 384, 52), (1, 384, None))}
+    _check(occ["BG1 Z=384 n_used 35"] >= 2,
+           f"the mixed slot's pusch0 shape holds < 2 CTAs per SM: {occ}")
+    split = "; ".join(_phase_split(label, llrs[key][:rows], bg, zc, n_used)
+                      for label, key, rows, bg, zc, n_used in (
+                          ("BG1 Z=384 x136 n_used 35, 6 dB",
+                           "mixed-BG1-Z384", 136, 1, 384, 35),
+                          ("full BG1 Z=384 x8, 1.5 dB", "full-BG1-Z384", 8,
+                           1, 384, None)))
+    print(f"[decoder] CTAs per SM: "
+          f"{', '.join(f'{k} {v}' for k, v in occ.items())}; phase split "
+          f"per CTA: {split} on {card}")
     return float(max_err)
+
+
+def _phase_split(label: str, llr: torch.Tensor, bg: int, zc: int,
+                 n_used) -> str:
+    """The decoder's per-CTA phase split from its diagnostic instance
+    (clock64 per phase; the SM clock from globaltimer over the same CTA)."""
+    diag, bits, ok = decoder_cuda.phase_split(llr, bg, zc,
+                                              nof_used_blocks=n_used)
+    want = decoder_cuda.decode_plain(llr, bg, zc, nof_used_blocks=n_used)
+    torch.cuda.synchronize()
+    _check(torch.equal(bits, want[0]) and torch.equal(ok, want[1]),
+           f"diagnostic decoder instance != plain at {label}")
+    d = diag.cpu().numpy().astype(np.float64)
+    ghz = float(np.median(d[:, 4] / np.maximum(d[:, 7] - d[:, 6], 1)))
+    span_us = (d[:, 7].max() - d[:, 6].min()) / 1e3
+    mean = d[:, :5].mean(axis=0) / ghz / 1e3          # us per CTA
+    names = ("load+clear", "sweeps", "syndrome", "bit write")
+    parts = ", ".join(f"{n} {us:.2f} us ({100 * us / mean[4]:.0f}%)"
+                      for n, us in zip(names, mean[:4]))
+    starts = np.sort(d[:, 6])
+    waves = 1 + int(((starts - starts[0]) > 0.5 * mean[4] * 1e3).any())
+    return (f"{label}: CTA {mean[4]:.2f} us = {parts}; sweeps "
+            f"{int(d[:, 5].min())}-{int(d[:, 5].max())}; kernel span "
+            f"{span_us:.1f} us, {'one wave' if waves == 1 else '>1 wave'}; "
+            f"SM clock {ghz:.2f} GHz")
 
 
 def phase_slice(dev, card: str) -> dict:
@@ -326,8 +411,10 @@ def phase_slice(dev, card: str) -> dict:
     # kernel and plain times at the flagship shapes
     bg, zc = seg.base_graph, seg.lifting_size
     cbs = segmentation.segment_tx(tb, seg).reshape(-1, seg.segment_length)
-    enc_ms = _time_ms(lambda: encoder_cuda.encode(cbs, bg, zc), 200)
-    enc_plain_ms = _time_ms(lambda: encoder_cuda.encode_plain(cbs, bg, zc), 5)
+    times = [_timed("encoder", f"BG{bg} Z={zc} x{cbs.shape[0]} (flagship)",
+                    lambda: encoder_cuda.encode(cbs, bg, zc),
+                    lambda: encoder_cuda.encode_plain(cbs, bg, zc), 200, 5,
+                    encoder_bound(bg, zc, cbs.shape[0]))]
     bb = gnb_flagship.tx_batch(tb, cfg) + noise
     rx = ofdm.demodulate_slot(bb, cfg.nsc, cfg.mu, cfg.nfft)[:, None]
     llr = sch.pusch_demodulate(rx, sh).llr_full.reshape(cbs.shape[0], -1)
@@ -337,25 +424,23 @@ def phase_slice(dev, card: str) -> dict:
                                                   nof_used_blocks=n_used)
     _check(all(torch.equal(a, b) for a, b in zip(dec(), dec_plain())),
            "decoder kernel != plain on the slice's LLRs")
-    dec_ms = _time_ms(dec, 200)
-    dec_plain_ms = _time_ms(dec_plain, 5)
+    times.append(_timed(
+        "decoder", f"BG{bg} Z={zc} x{llr.shape[0]} n_used {n_used} "
+        f"(flagship)", dec, dec_plain, 200, 5,
+        decoder_bound(llr, bg, zc, nof_used_blocks=n_used)))
     # the same shape when no codeblock converges: all 6 iterations run
     llr_bad = _noisy_llr(np.random.default_rng(5),
                          encoder_cuda.encode(cbs, bg, zc), -6.0, zc, dev)
     dec_bad_ms = _time_ms(
         lambda: decoder_cuda.decode(llr_bad, bg, zc, nof_used_blocks=n_used),
-        50)
+        50, queued=True)
     print(f"[slice] {cfg.nof_prb}-PRB loopback x{SLICE_SUBMITS} batches of "
           f"{SLICE_BATCH} slots (warmup {warm_s:.2f} s): "
           f"{us_per_slot:.1f} us/slot, all {oks.size} TB CRC ok, mean SINR "
-          f"{float(sinrs.mean()):.2f} dB, launches {launches}; encoder "
-          f"{list(cbs.shape)} {enc_ms:.4f} ms (plain {enc_plain_ms:.3f} ms), "
-          f"decoder {list(llr.shape)} {dec_ms:.4f} ms (plain "
-          f"{dec_plain_ms:.3f} ms; no convergence, all 6 iterations: "
-          f"{dec_bad_ms:.4f} ms) on {card}")
-    return {"launches": launches, "enc_ms": enc_ms,
-            "enc_plain_ms": enc_plain_ms, "dec_ms": dec_ms,
-            "dec_plain_ms": dec_plain_ms, "pipe": pipe, "tb": tb}
+          f"{float(sinrs.mean()):.2f} dB, launches {launches}; "
+          f"{'; '.join(map(_fmt, times))}; decoder with no convergence, all 6"
+          f" iterations: {dec_bad_ms * 1e3:.1f} us on {card}")
+    return {"launches": launches, "times": times, "pipe": pipe, "tb": tb}
 
 
 def _profiled(run, reps: int, unit: str, after=None) -> str:
@@ -490,10 +575,12 @@ def phase_mixed(dev, card: str) -> dict:
         bg, zc = seg.base_graph, seg.lifting_size
         cbs = segmentation.segment_tx(payloads[key], seg).reshape(
             -1, seg.segment_length)
-        times.append(("encoder", f"BG{bg} Z={zc} x{cbs.shape[0]}",
-                      _time_ms(lambda: encoder_cuda.encode(cbs, bg, zc), 200),
-                      _time_ms(lambda: encoder_cuda.encode_plain(cbs, bg, zc),
-                               3)))
+        times.append(_timed(
+            "encoder", f"BG{bg} Z={zc} x{cbs.shape[0]} (mixed {key})",
+            lambda: encoder_cuda.encode(cbs, bg, zc),
+            lambda: encoder_cuda.encode_plain(cbs, bg, zc), 200, 3,
+            encoder_bound(bg, zc, cbs.shape[0])))
+    splits = []
     for name, sh in (("u0", cfg.pusch0), ("u1", cfg.pusch1)):
         seg = sh.segments
         bg, zc = seg.base_graph, seg.lifting_size
@@ -504,17 +591,20 @@ def phase_mixed(dev, card: str) -> dict:
                                                       nof_used_blocks=n_used)
         _check(all(torch.equal(a, b) for a, b in zip(dec(), dec_plain())),
                f"decoder kernel != plain on the mixed slot's {name} LLRs")
-        times.append(("decoder", f"BG{bg} Z={zc} x{llr.shape[0]} "
-                                 f"n_used {n_used}",
-                      _time_ms(dec, 200), _time_ms(dec_plain, 3)))
-    shapes = "; ".join(f"{k} {s} {ms:.4f} ms (plain {pms:.3f} ms)"
-                       for k, s, ms, pms in times)
+        shape = f"BG{bg} Z={zc} x{llr.shape[0]} n_used {n_used} (mixed {name})"
+        times.append(_timed("decoder", shape, dec, dec_plain, 200, 3,
+                            decoder_bound(llr, bg, zc,
+                                          nof_used_blocks=n_used)))
+        splits.append(_phase_split(shape, llr, bg, zc, n_used))
+    shapes = "; ".join(map(_fmt, times))
     print(f"[mixed] {cfg.nof_prb}-PRB mixed slot x{MIXED_SUBMITS} batches of "
           f"{SLICE_BATCH} slots (warmup {warm_s:.2f} s): {us_per_slot:.1f} "
           f"us/slot, all {oks.size} slots ok, mean UL SINR "
           f"{float(sinrs.mean()):.2f} dB, launches {launches}; slots passing "
           f"each check (of {2 * SLICE_BATCH}): {counts}; stage wall ms per "
           f"batch (median of 5): {split_s}; {shapes} on {card}")
+    print(f"[mixed] decoder phase split per CTA on the mixed slot's LLRs: "
+          f"{'; '.join(splits)} on {card}")
     return {"launches": launches, "times": times, "pipe": pipe,
             "payloads": payloads, "cfg": cfg}
 
@@ -524,7 +614,7 @@ def phase_mixed_cpu(dev, card: str) -> None:
     noise through the plain versions on the CPU."""
     cfg = gnb_mixed.tiny_mixed()
     rng = np.random.default_rng(7)
-    pay = gnb_mixed.make_payloads(cfg, rng, 2)
+    pay = gnb_mixed.make_payloads(cfg, rng, 2, "cpu")
     noise = gnb_mixed.draw_noise(cfg, 2, torch.Generator().manual_seed(7))
     out = {}
     for where in ("cpu", dev):
@@ -698,11 +788,17 @@ def phase_upper_phy(dev, card: str) -> dict:
                  f"{kw['nof_used_blocks']} (UpperPhy slot 0)")
         _check(all(torch.equal(a, b) for a, b in zip(got, want)),
                f"decoder kernel != plain on the UL slot's group {shape}")
-        times.append(("decoder", shape,
-                      _time_ms(lambda: decoder_cuda.decode(llr, bg, zc, **kw),
-                               50),
-                      _time_ms(lambda: decoder_cuda.decode_plain(
-                          llr, bg, zc, **kw), 3)))
+        times.append(_timed(
+            "decoder", shape, lambda: decoder_cuda.decode(llr, bg, zc, **kw),
+            lambda: decoder_cuda.decode_plain(llr, bg, zc, **kw), 50, 3,
+            decoder_bound(llr, bg, zc, **kw)))
+    # the encoder at a DL slot's PDSCH shape (PDSCH A: BG1 Z=384 x8)
+    cbs = torch.randint(0, 2, (8, 22 * 384), generator=gen, device=dev,
+                        dtype=torch.int8)
+    times.append(_timed("encoder", "BG1 Z=384 x8 (UpperPhy PDSCH A)",
+                        lambda: encoder_cuda.encode(cbs, 1, 384),
+                        lambda: encoder_cuda.encode_plain(cbs, 1, 384), 200,
+                        3, encoder_bound(1, 384, 8)))
 
     # ---- HARQ pair: rv=0 fails, rv=2 combines on the full graph and passes
     first = fapi_carrier.ul_request(car, UPPER_SLOTS, full=False,
@@ -724,8 +820,8 @@ def phase_upper_phy(dev, card: str) -> dict:
     seg = cfg2.segments
     _check(sch.used_blocks(cfg2) is None
            and decoder_cuda.state_bytes(seg.base_graph, seg.lifting_size)
-           > decoder_cuda.SMEM_LIMIT,
-           "the retransmission does not take the global-c2v full graph")
+           <= 232_448,
+           "the retransmission does not take the full graph in shared memory")
     d0 = decoder_cuda.decode.launches
     inds2 = phy.process_ul_slot(rx2, retx, slot_count=UPPER_SLOTS + 1)
     checks = fapi_carrier.ul_checks(car, retx, pay, inds2, None)
@@ -755,16 +851,17 @@ def phase_upper_phy(dev, card: str) -> dict:
            and bool(got[1].all()),
            "full-graph decoder != plain on the combined buffer")
     err = float((got[0].int() - want[0].int()).abs().max())
-    full_ms, plain_ms = _time_ms(full, 50), _time_ms(plain, 3)
+    shape = f"BG{bg} Z={zc} x{combined.shape[0]} full graph (HARQ rv=2)"
+    times.append(_timed("decoder", shape, full, plain, 50, 3,
+                        decoder_bound(combined, bg, zc)))
+    full_split = _phase_split(shape, combined, bg, zc, None)
     trunc = lambda: decoder_cuda.decode(combined, bg, zc,
                                         nof_used_blocks=n_used)
     want = decoder_cuda.decode_plain(combined, bg, zc, nof_used_blocks=n_used)
     _check(all(torch.equal(a, b) for a, b in zip(trunc(), want)),
            f"truncated-graph decoder (n_used {n_used}) != plain on the "
            f"combined buffer")
-    trunc_ms = _time_ms(trunc, 50)
-    shape = (f"BG{bg} Z={zc} x{combined.shape[0]} full graph (global c2v)")
-    times.append(("decoder", shape, full_ms, plain_ms))
+    trunc_ms = _time_ms(trunc, 50, queued=True)
     print(f"[upper-phy] {car.nof_prb}-PRB FAPI carrier, 4 rx, "
           f"{car.snr_db:.0f} dB: {UPPER_SLOTS} DL slots {np.median(dl_ms):.2f}"
           f" ms median ({min(dl_ms):.2f}-{max(dl_ms):.2f}), PDSCH symbol "
@@ -774,14 +871,13 @@ def phase_upper_phy(dev, card: str) -> dict:
           f"PUSCH B SINR {np.mean(sinr_b):.2f} dB, launches {launches}; "
           f"HARQ rv=0 fail -> rv=2 combined pass at {car.harq_snr_db:.0f} dB;"
           f" {phy.ul_programs.nof_compiled} UL programs for {len(sigs)} "
-          f"signatures; decoder {shape} {full_ms:.4f} ms (plain "
-          f"{plain_ms:.3f} ms; truncated n_used {n_used} {trunc_ms:.4f} ms) "
-          f"on {card}")
-    groups_s = "; ".join(f"{s} {ms:.4f} ms (plain {pms:.3f} ms)"
-                         for _, s, ms, pms in times[:-1])
-    print(f"[upper-phy] decode groups of UL slot 0, kernel == plain on the "
-          f"program's LLRs: {groups_s}; truncated n_used {n_used} == plain on "
-          f"the combined buffer on {card}")
+          f"signatures; {_fmt(times[-1])}; the same LLRs on the truncated "
+          f"graph n_used {n_used}: {trunc_ms * 1e3:.1f} us on {card}")
+    print(f"[upper-phy] the decode groups of UL slot 0 (kernel == plain on "
+          f"the program's LLRs) and a DL slot's encoder shape: "
+          f"{'; '.join(map(_fmt, times[:-1]))}; truncated "
+          f"n_used {n_used} == plain on the combined buffer; full-graph phase "
+          f"split per CTA: {full_split} on {card}")
     return {"launches": launches, "max_err": err, "times": times,
             "phy": phy, "car": car, "gen": gen, "rng": rng}
 
@@ -803,12 +899,15 @@ def phase_upper_profile(card: str, u: dict) -> None:
 
 def _kernel_entry(name: str, kind: str, flag: dict, mixed: dict,
                   upper: dict, max_err: float) -> dict:
-    """One kernels-JSON entry: launches of the three main paths; times of
-    one launch at each of their shapes, added up."""
-    shapes = [(f"flagship BG2 Z=384 x{FLAGSHIP_CBS}", flag[f"{kind[:3]}_ms"],
-               flag[f"{kind[:3]}_plain_ms"])]
-    shapes += [(s, ms, pms) for k, s, ms, pms in mixed["times"] + upper["times"]
-               if k == kind]
+    """One kernels-JSON entry: launches of the three main paths; times and
+    bounds of one launch at each of their shapes, added up.  No single
+    PyTorch call computes an LDPC encode or a layered min-sum decode, so
+    library_ms is null."""
+    recs = [r for r in flag["times"] + mixed["times"] + upper["times"]
+            if r["kind"] == kind]
+    ms = sum(r["ms"] for r in recs)
+    bound = sum(r["bound_ms"] for r in recs)
+    by = [r["bound_by"] for r in recs]
     return {"name": name, "route": "cuda",
             "source": f"srsran_project_23_5_tpu_torch/csrc/{name}.cu",
             "replaces": {"encoder": "srsran_project_23_5_tpu/ops/ldpc/"
@@ -817,11 +916,14 @@ def _kernel_entry(name: str, kind: str, flag: dict, mixed: dict,
                                     "decoder_pallas.py:195"}[kind],
             "launches": (flag["launches"][kind] + mixed["launches"][kind]
                          + upper["launches"][kind]),
-            "max_abs_err": max_err,
-            "ms": sum(ms for _, ms, _ in shapes),
-            "plain_ms": sum(pms for _, _, pms in shapes),
-            "shapes": [{"shape": s, "ms": ms, "plain_ms": pms}
-                       for s, ms, pms in shapes]}
+            "max_abs_err": max_err, "ms": ms,
+            "plain_ms": sum(r["plain_ms"] for r in recs),
+            "bound_ms": bound, "bound_by": max(set(by), key=by.count),
+            "library_ms": None, "share": bound / ms,
+            "shapes": [{k: r[k] for k in ("shape", "ms", "plain_ms",
+                                          "bound_ms", "bound_by", "share",
+                                          "sweeps") if k in r}
+                       for r in recs]}
 
 
 def main() -> None:

@@ -43,6 +43,7 @@ from ..phy.upper import sch
 from ..phy.upper import ssb as ssb_proc
 from ..ran import numerology, tbs as tbs_mod
 from ..ran.constants import NRE
+from ..utils.device import resolve as resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,10 +158,12 @@ def tiny_mixed(**over) -> MixedSlotConfig:
 
 
 def make_payloads(cfg: MixedSlotConfig, rng: np.random.Generator,
-                  batch: int, device: torch.device | str = "cpu"
+                  batch: int, device: torch.device | str | None = None
                   ) -> dict[str, torch.Tensor]:
     """Random per-slot payloads: {name: [batch, n] int8 {0,1}} on `device`
-    (the same draws, in the same order, as the JAX ``make_payloads``)."""
+    (default: the current CUDA device; the same draws, in the same order,
+    as the JAX ``make_payloads``)."""
+    device = resolve_device(device)
     sizes = {"tb_dl0": cfg.pdsch0.tbs, "tb_dl1": cfg.pdsch1.tbs,
              "tb_ul0": cfg.pusch0.tbs, "tb_ul1": cfg.pusch1.tbs,
              "dci_dl": cfg.pdcch_dl.payload_size,

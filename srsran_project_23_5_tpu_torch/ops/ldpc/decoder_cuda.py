@@ -18,13 +18,15 @@ decoder_pallas.py) with its semantics, which both versions here copy exactly:
 
 ``decode`` takes ``decode_plain`` only for a CPU tensor; for a CUDA tensor it
 launches the kernel (one CTA per codeblock, all codeblocks in one launch) or
-raises.  Where app + c2v of a codeblock fit in shared memory the kernel keeps
-both there; otherwise (the full BG1 graph at Z > 302, i.e. every rv > 0 or
-HARQ-combined decode at Z = 320/352/384) it keeps app there and c2v in a
-global scratch buffer.  ``decode.launches`` counts kernel launches.
+raises.  The kernel keeps each check row's messages compressed, per lane:
+bf16(0.8·m1) and bf16(0.8·m2) in one word, the message signs and the argmin
+edge in another (``c2v_compress`` / ``c2v_expand`` spell out that layout
+for the tests), so the state of every graph fits in shared memory.
+``decode.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -33,10 +35,10 @@ import torch
 from ...utils import kernels
 from .graphs import LiftedGraph, lifted_graph
 
-__all__ = ["decode", "decode_plain", "used_blocks", "state_bytes"]
+__all__ = ["decode", "decode_plain", "used_blocks", "state_bytes",
+           "c2v_compress", "c2v_expand"]
 
 SCALE = 0.8                 # min-sum normalisation
-SMEM_LIMIT = 232_448        # dynamic shared memory a block may hold on sm_90
 
 
 def _layers(graph: LiftedGraph, nof_used_blocks: int | None = None):
@@ -71,10 +73,10 @@ def _schedule(base_graph: int, z: int, nof_used_blocks: int | None):
 
 def state_bytes(base_graph: int, z: int,
                 nof_used_blocks: int | None = None) -> int:
-    """Bytes one codeblock's app + c2v take in the kernel (bf16); above
-    SMEM_LIMIT the kernel moves c2v to device memory."""
-    _, n, _, n_edges = _schedule(base_graph, z, nof_used_blocks)
-    return 2 * (n + n_edges) * z
+    """Bytes of one codeblock's state in the kernel's shared memory: app in
+    bf16 and 8 B of compressed c2v per (check row, lane)."""
+    _, n, layers, _ = _schedule(base_graph, z, nof_used_blocks)
+    return (8 * len(layers) + 2 * n) * z
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -90,6 +92,18 @@ def _steps(nof_iterations: int, check_period: int) -> int:
     return -(-nof_iterations // check_period)
 
 
+def _messages(t: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """One check row's new messages (float32, before the bf16 store) from
+    t [batch, deg, z]; every row has degree >= 3."""
+    a = t.abs()
+    two = torch.topk(a, 2, dim=1, largest=False).values
+    m1, m2 = two[:, 0:1], two[:, 1:2]
+    neg = t < 0.0
+    neg_prod = (neg.sum(dim=1, keepdim=True) % 2) == 1
+    msg = torch.where(a == m1, m2, m1) * scale
+    return torch.where(neg_prod != neg, -msg, msg)
+
+
 @functools.lru_cache(maxsize=64)
 def _layer_index(base_graph: int, z: int, nof_used_blocks: int | None,
                  device: torch.device):
@@ -103,15 +117,9 @@ def _layer_index(base_graph: int, z: int, nof_used_blocks: int | None,
     return out
 
 
-def decode_plain(llr: torch.Tensor, base_graph: int, lifting_size: int,
-                 nof_iterations: int = 6, check_period: int = 1,
-                 nof_used_blocks: int | None = None
-                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch decode with the Pallas kernel's semantics.
-
-    llr: [batch, N_full*Zc] float; returns (bits [batch, K] int8,
-    ok [batch] bool).
-    """
+def _decode_plain(llr, base_graph, lifting_size, nof_iterations,
+                  check_period, nof_used_blocks):
+    """decode_plain, plus the sweeps each codeblock ran [batch] int64."""
     z = lifting_size
     graph, n, _, n_edges = _schedule(base_graph, z, nof_used_blocks)
     k = graph.nof_msg_blocks
@@ -128,13 +136,7 @@ def decode_plain(llr: torch.Tensor, base_graph: int, lifting_size: int,
             v = app[:, idx]                                      # [b, deg, z]
             old = c2v[:, e0:e0 + deg]
             t = v - old
-            a = t.abs()
-            two = torch.topk(a, 2, dim=1, largest=False).values
-            m1, m2 = two[:, 0:1], two[:, 1:2]      # every row has degree >= 3
-            neg = t < 0.0
-            neg_prod = (neg.sum(dim=1, keepdim=True) % 2) == 1
-            msg = torch.where(a == m1, m2, m1) * scale
-            msg = torch.where(neg_prod != neg, -msg, msg)
+            msg = _messages(t, scale)
             c2v[:, e0:e0 + deg] = torch.where(hold, old, _bf16(msg))
             app[:, idx] = torch.where(hold, v, _bf16(t + msg))
 
@@ -146,45 +148,94 @@ def decode_plain(llr: torch.Tensor, base_graph: int, lifting_size: int,
         return ok
 
     done = torch.zeros(b, dtype=torch.bool, device=dev)
+    sweeps = torch.zeros(b, dtype=torch.int64, device=dev)
     for _ in range(_steps(nof_iterations, check_period)):
         if bool(done.all()):
             break
         for _ in range(check_period):
             sweep(done)
+        sweeps += torch.where(done, 0, check_period)
         done = done | syndrome()
     bits = (app[:, :k * z] <= 0.0).to(torch.int8)
-    return bits, done
+    return bits, done, sweeps
+
+
+def decode_plain(llr: torch.Tensor, base_graph: int, lifting_size: int,
+                 nof_iterations: int = 6, check_period: int = 1,
+                 nof_used_blocks: int | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch decode with the Pallas kernel's semantics.
+
+    llr: [batch, N_full*Zc] float; returns (bits [batch, K] int8,
+    ok [batch] bool).
+    """
+    bits, ok, _ = _decode_plain(llr, base_graph, lifting_size, nof_iterations,
+                                check_period, nof_used_blocks)
+    return bits, ok
+
+
+def sweeps_needed(llr: torch.Tensor, base_graph: int, lifting_size: int,
+                  nof_iterations: int = 6, check_period: int = 1,
+                  nof_used_blocks: int | None = None) -> torch.Tensor:
+    """Sweeps each codeblock runs before its syndrome passes (or the
+    iteration cap), counted by the plain version: [batch] int64."""
+    return _decode_plain(llr, base_graph, lifting_size, nof_iterations,
+                         check_period, nof_used_blocks)[2]
+
+
+def _bf16_bits(x: torch.Tensor) -> torch.Tensor:
+    """bfloat16 bit patterns of float32 values (nearest even), as int64."""
+    return x.to(torch.bfloat16).view(torch.int16).to(torch.int64) & 0xFFFF
+
+
+def c2v_compress(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's stored form of one check row's messages, from its t
+    [batch, deg, z] float32: (mag, sgn) [batch, z] int64 words, mag =
+    bf16(0.8·m1) | bf16(0.8·m2) << 16, sgn = message sign bits (bit e) |
+    argmin edge << 27."""
+    a = t.abs()
+    two = torch.topk(a, 2, dim=1, largest=False).values
+    scale = torch.tensor(SCALE, dtype=torch.float32, device=t.device)
+    mag = _bf16_bits(two[:, 0] * scale) | _bf16_bits(two[:, 1] * scale) << 16
+    neg = (t < 0.0).to(torch.int64)
+    flip = neg.sum(dim=1) % 2
+    weights = 1 << torch.arange(t.shape[1], device=t.device)[None, :, None]
+    signs = ((neg ^ flip[:, None]) * weights).sum(dim=1)
+    return mag, signs | torch.argmin(a, dim=1) << 27
+
+
+def c2v_expand(mag: torch.Tensor, sgn: torch.Tensor, deg: int
+               ) -> torch.Tensor:
+    """The messages [batch, deg, z] float32 (bf16 values) that the kernel
+    rebuilds from (mag, sgn): ±(e == argmin ? M2 : M1)."""
+    e = torch.arange(deg, device=mag.device)[None, :, None]
+    bits = torch.where(e == (sgn >> 27)[:, None], mag[:, None] >> 16,
+                       mag[:, None] & 0xFFFF)
+    bits = bits | ((sgn[:, None] >> e) & 1) << 15
+    return (bits << 16).to(torch.int32).view(torch.float32)
 
 
 @functools.lru_cache(maxsize=64)
 def _graph_arrays(base_graph: int, z: int, nof_used_blocks: int | None,
                   device: torch.device):
-    """Device copies of the compacted layer schedule for the kernel."""
+    """Device copies of the compacted layer schedule for the kernel: layer
+    offsets and one packed word per edge, col·z | shift << 16 | col << 25."""
     _, _, layers, _ = _schedule(base_graph, z, nof_used_blocks)
     layer_off = np.asarray([e0 for e0, _, _ in layers]
-                           + [layers[-1][0] + len(layers[-1][1])])
-    cols = np.concatenate([np.asarray(c) for _, c, _ in layers])
-    shifts = np.concatenate([np.asarray(s) for _, _, s in layers])
+                           + [layers[-1][0] + len(layers[-1][1])], np.int32)
+    cols = np.concatenate([c for _, c, _ in layers]).astype(np.int64)
+    shifts = np.concatenate([s for _, _, s in layers]).astype(np.int64)
+    sched = (cols * z | shifts << 16 | cols << 25).astype(np.uint32).view(
+        np.int32)
     d_max = max(len(c) for _, c, _ in layers)
-    tensors = tuple(torch.from_numpy(a.astype(np.int32)).to(device)
-                    for a in (layer_off, cols, shifts))
+    tensors = tuple(torch.from_numpy(a).to(device) for a in (layer_off, sched))
     return tensors, len(layers), d_max
 
 
-def decode(llr: torch.Tensor, base_graph: int, lifting_size: int,
-           nof_iterations: int = 6, check_period: int = 1,
-           nof_used_blocks: int | None = None, _global_c2v: bool = False
-           ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Decode a batch of codeblocks; same contract as
-    decoder_pallas.decode: llr [batch, N_full*Zc] float32 →
-    (bits [batch, K] int8, ok [batch] bool).  ``_global_c2v`` forces the
-    global-c2v instance on a shape that fits in shared memory (tests)."""
-    if llr.device.type == "cpu":
-        return decode_plain(llr, base_graph, lifting_size, nof_iterations,
-                            check_period, nof_used_blocks)
-    if llr.device.type != "cuda":
-        raise ValueError(f"no LDPC decoder for device {llr.device}")
-    z = lifting_size
+def _launch(llr, base_graph, z, nof_iterations, check_period,
+            nof_used_blocks, diag=None):
+    """One kernel launch: (bits, ok); the diagnostic instance when `diag`
+    ([batch, 8] int64) is given."""
     graph, n, _, n_edges = _schedule(base_graph, z, nof_used_blocks)
     k = graph.nof_msg_blocks
     if (llr.dtype != torch.float32 or llr.dim() != 2
@@ -192,28 +243,71 @@ def decode(llr: torch.Tensor, base_graph: int, lifting_size: int,
         raise ValueError(f"decoder takes float32 [batch, >= {n * z}] rows "
                          f"with unit stride, got {llr.dtype} "
                          f"{tuple(llr.shape)} strides {llr.stride()}")
-    global_c2v = (_global_c2v
-                  or state_bytes(base_graph, z, nof_used_blocks) > SMEM_LIMIT)
     steps = _steps(nof_iterations, check_period)
     batch = llr.shape[0]
     bits = torch.empty((batch, k * z), dtype=torch.int8, device=llr.device)
     ok = torch.empty((batch,), dtype=torch.bool, device=llr.device)
     if batch == 0:
         return bits, ok
-    (layer_off, cols, shifts), nof_layers, d_max = _graph_arrays(
+    (layer_off, sched), nof_layers, d_max = _graph_arrays(
         base_graph, z, nof_used_blocks, llr.device)
-    # c2v scratch of the global instance; the kernel clears it
-    c2v = (torch.empty((batch, n_edges * z), dtype=torch.bfloat16,
-                       device=llr.device) if global_c2v else None)
-    stream = torch.cuda.current_stream(llr.device).cuda_stream
+    vec = llr.data_ptr() % 16 == 0 and llr.stride(0) % 4 == 0
     err = kernels.library().lib.ldpc_decode(
-        llr.data_ptr(), llr.stride(0), bits.data_ptr(), ok.data_ptr(), batch,
-        layer_off.data_ptr(), cols.data_ptr(), shifts.data_ptr(), nof_layers,
-        z, n, k, n_edges, d_max, steps, check_period, SCALE,
-        c2v.data_ptr() if c2v is not None else None, stream)
+        llr.data_ptr(), llr.stride(0), int(vec), bits.data_ptr(),
+        ok.data_ptr(), batch, layer_off.data_ptr(), sched.data_ptr(),
+        nof_layers, z, n, k, n_edges, d_max, steps, check_period, SCALE,
+        None if diag is None else diag.data_ptr(),
+        torch.cuda.current_stream(llr.device).cuda_stream)
     kernels.check(err, "ldpc_decode launch")
-    decode.launches += 1
     return bits, ok
 
 
+def decode(llr: torch.Tensor, base_graph: int, lifting_size: int,
+           nof_iterations: int = 6, check_period: int = 1,
+           nof_used_blocks: int | None = None
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Decode a batch of codeblocks; same contract as
+    decoder_pallas.decode: llr [batch, N_full*Zc] float32 →
+    (bits [batch, K] int8, ok [batch] bool)."""
+    if llr.device.type == "cpu":
+        return decode_plain(llr, base_graph, lifting_size, nof_iterations,
+                            check_period, nof_used_blocks)
+    if llr.device.type != "cuda":
+        raise ValueError(f"no LDPC decoder for device {llr.device}")
+    out = _launch(llr, base_graph, lifting_size, nof_iterations,
+                  check_period, nof_used_blocks)
+    if llr.shape[0]:
+        decode.launches += 1
+    return out
+
+
 decode.launches = 0
+
+
+def phase_split(llr: torch.Tensor, base_graph: int, lifting_size: int,
+                nof_iterations: int = 6, check_period: int = 1,
+                nof_used_blocks: int | None = None):
+    """The kernel's diagnostic instance (measurement only; not counted in
+    ``decode.launches``): (diag, bits, ok) with diag [batch, 8] int64 per
+    CTA: SM cycles of LLR load + c2v clear, sweeps, syndrome checks, bit
+    write and the whole CTA; the sweeps run; globaltimer ns at start and
+    end."""
+    if llr.device.type != "cuda":
+        raise ValueError("the phase split needs the CUDA kernel")
+    diag = torch.zeros((llr.shape[0], 8), dtype=torch.int64,
+                       device=llr.device)
+    bits, ok = _launch(llr, base_graph, lifting_size, nof_iterations,
+                       check_period, nof_used_blocks, diag)
+    return diag, bits, ok
+
+
+def ctas_per_sm(base_graph: int, lifting_size: int,
+                nof_used_blocks: int | None = None) -> int:
+    """CTAs of the kernel that one SM holds at this shape (CUDA occupancy
+    calculator; needs the card)."""
+    _, n, layers, _ = _schedule(base_graph, lifting_size, nof_used_blocks)
+    out = ctypes.c_int(0)
+    kernels.check(kernels.library().lib.ldpc_decode_ctas_per_sm(
+        lifting_size, len(layers), n, ctypes.byref(out)),
+        "ldpc_decode occupancy")
+    return out.value

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..models import gnb_flagship
+from ..utils.device import resolve as resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,7 +46,7 @@ class SlotPipeline:
     """
 
     def __init__(self, config: PipelineConfig,
-                 device: torch.device | str = "cpu", seed: int = 0,
+                 device: torch.device | str | None = None, seed: int = 0,
                  batch_fn: Callable | None = None) -> None:
         if config.depth < 1:
             raise ValueError(f"depth must be >= 1, got {config.depth}")
@@ -53,9 +54,7 @@ class SlotPipeline:
             raise ValueError("the default loopback needs config.carrier")
         self.config = config
         self.batch_fn = batch_fn
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and self.device.index is None:
-            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.device = resolve_device(device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         if config.carrier is not None:

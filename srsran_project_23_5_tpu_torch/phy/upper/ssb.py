@@ -136,7 +136,7 @@ def _tables(cfg: SsbConfig, device: torch.device):
 
 
 def dmrs_pbch_pilots(cfg: SsbConfig,
-                     device: torch.device | str = "cpu") -> torch.Tensor:
+                     device: torch.device | str) -> torch.Tensor:
     """[144] QPSK PBCH DM-RS pilots on `device`."""
     return _tables(cfg, torch.device(device))[4]
 

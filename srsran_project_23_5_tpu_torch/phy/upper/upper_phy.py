@@ -21,6 +21,7 @@ from . import csi_rs as csi_rs_proc
 from . import pdcch as pdcch_proc
 from . import pucch as pucch_proc
 from . import sch, slot_programs, ssb as ssb_proc
+from ...utils.device import resolve as resolve_device
 from .harq import SoftbufferPool
 
 
@@ -57,13 +58,13 @@ class UpperPhy:
     computes it and raises no indication for it)."""
 
     def __init__(self, config: UpperPhyConfig,
-                 device: torch.device | str = "cpu") -> None:
+                 device: torch.device | str | None = None) -> None:
         if config.sanitize:
             raise NotImplementedError(
                 "UpperPhyConfig.sanitize: the grid write-overlap sanitizer "
                 "is not ported yet")
         self.config = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.softbuffers = SoftbufferPool()
         self.ul_programs = slot_programs.UlSlotPrograms(
             config.nof_ldpc_iterations)

@@ -31,10 +31,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry point → argument types (every pointer and the stream as c_void_p)
 _SIGNATURES = {
-    "ldpc_encode": (_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                    _P),
-    "ldpc_decode": (_P, ctypes.c_longlong, _P, _P, _I, _P, _P, _P, _I, _I, _I,
-                    _I, _I, _I, _I, _I, ctypes.c_float, _P, _P),
+    "ldpc_encode": (_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "ldpc_decode": (_P, ctypes.c_longlong, _I, _P, _P, _I, _P, _P, _I, _I,
+                    _I, _I, _I, _I, _I, _I, ctypes.c_float, _P, _P),
+    "ldpc_decode_ctas_per_sm": (_I, _I, _I, _P),
 }
 
 

@@ -248,7 +248,7 @@ def test_pbch_encode_exact(idx):
                           ssb.pss_sequence(cfg.nid2))
     assert np.array_equal(tssb.sss_sequence(cfg.nid1, cfg.nid2),
                           ssb.sss_sequence(cfg.nid1, cfg.nid2))
-    np.testing.assert_allclose(tssb.dmrs_pbch_pilots(_tssb(cfg)).numpy(),
+    np.testing.assert_allclose(tssb.dmrs_pbch_pilots(_tssb(cfg), "cpu").numpy(),
                                np.asarray(ssb.dmrs_pbch_pilots(cfg)),
                                rtol=0, atol=_GRID_ATOL)
 

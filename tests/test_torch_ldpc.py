@@ -273,9 +273,153 @@ def test_decoder_layers_and_state_bytes():
     for bits in (2112, 12672, 19656):
         assert (decoder_cuda.used_blocks(2, 384, bits)
                 == decoder_pallas.used_blocks(2, 384, bits))
-    # flagship: BG2 Z=384, 52 blocks, 197 edges in bf16
-    assert decoder_cuda.state_bytes(2, 384, 52) == 191_232
-    assert decoder_cuda.state_bytes(2, 384, 52) <= decoder_cuda.SMEM_LIMIT
-    # full BG1 graph at Z=384 (68 blocks, 316 edges) does not fit
-    assert decoder_cuda.state_bytes(1, 384) == 294_912
-    assert decoder_cuda.state_bytes(1, 384) > decoder_cuda.SMEM_LIMIT
+    # state in shared memory: app in bf16 + 8 B of compressed c2v per
+    # (check row, lane).  Flagship = the full BG2 graph: 42 rows, 52 blocks
+    assert decoder_cuda.state_bytes(2, 384, 52) == 168_960
+    assert decoder_cuda.state_bytes(2, 384) == 168_960
+    # the full BG1 graph at Z=384 (46 rows, 68 blocks) now fits the
+    # 232,448 B a block may hold
+    assert decoder_cuda.state_bytes(1, 384) == 193_536 <= 232_448
+    # the mixed slot's pusch0: 13 rows, 35 blocks; two CTAs share an SM
+    assert decoder_cuda.state_bytes(1, 384, 35) == 66_816
+
+
+def _bits_i32(x: torch.Tensor) -> torch.Tensor:
+    """float32 bit patterns (tells -0.0 from +0.0)."""
+    return x.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("deg", list(range(3, 20)))
+def test_c2v_compression_is_exact(deg):
+    """The decoder kernel stores a check row's messages as bf16(0.8·m1),
+    bf16(0.8·m2), the argmin edge and one sign per edge; expanding them
+    gives bit for bit the bf16 messages the plain layer step stores, with
+    forced ties |t| == m1 on several edges, ±0 inputs, and the zero
+    state."""
+    rng = np.random.default_rng(deg)
+    b, z = 64, 16
+    t = (rng.standard_normal((b, deg, z)) * 30).astype(np.float32)
+    t[rng.random(t.shape) < 0.2] = 0.0                       # +0
+    t[rng.random(t.shape) < 0.2] = -0.0                      # -0
+    # ties: copy a row's smallest |t| (with either sign) onto other edges
+    for r in range(0, b, 2):
+        a = np.abs(t[r])
+        low = a.min(axis=0)
+        for e in rng.choice(deg, size=rng.integers(2, deg + 1),
+                            replace=False):
+            t[r, e] = np.where(rng.random(z) < 0.5, low, -low)
+    t[-1] = 0.0                                              # all +0
+    t[-2] = -0.0                                             # all -0
+    t = torch.from_numpy(t)
+    scale = torch.tensor(decoder_cuda.SCALE, dtype=torch.float32)
+    want = decoder_cuda._bf16(decoder_cuda._messages(t, scale))
+    got = decoder_cuda.c2v_expand(*decoder_cuda.c2v_compress(t), deg)
+    assert torch.equal(_bits_i32(got), _bits_i32(want))
+    # the decoder's initial state (all words zero) is +0 on every edge
+    zero = torch.zeros((b, z), dtype=torch.int64)
+    assert not _bits_i32(decoder_cuda.c2v_expand(zero, zero, deg)).any()
+
+
+@pytest.mark.parametrize("zc", [2, 36, 208, 320, 352, 384])
+def test_doubled_block_rotation_matches_roll(zc):
+    """The encoder kernel's rotation: a Z-bit block stored twice back to
+    back in 32-bit words, lanes 32w.. of P^s x read as one funnel shift at
+    bit 32w + s, the last word masked; equal to torch.roll(x, -s)."""
+    rng = np.random.default_rng(zc)
+    x = torch.from_numpy(rng.integers(0, 2, size=(5, zc)).astype(np.int8))
+    doubled = encoder_cuda.pack_doubled(x)
+    assert doubled.shape == (5, encoder_cuda.doubled_words(zc))
+    nw = -(-zc // 32)
+    lane = torch.arange(32 * nw)
+    for s in sorted({0, 1, zc // 2, zc - 1, 31 % zc, 32 % zc,
+                     int(rng.integers(zc))}):
+        words = encoder_cuda.rotated_words(doubled, s, zc)
+        bits = (words[..., lane // 32] >> (lane % 32)) & 1
+        assert not bits[:, zc:].any(), (zc, s)                # masked tail
+        assert torch.equal(bits[:, :zc].to(torch.int8),
+                           torch.roll(x, -s, dims=-1)), (zc, s)
+
+
+def _words_to_bits(words: torch.Tensor, z: int) -> torch.Tensor:
+    lane = torch.arange(z)
+    return ((words[..., lane // 32] >> (lane % 32)) & 1).to(torch.int8)
+
+
+@pytest.mark.parametrize("bg,zc", [(1, 36), (2, 36), (1, 208), (2, 15),
+                                   (1, 384), (2, 384)])
+def test_encoder_schedule_on_doubled_blocks_matches_plain(bg, zc):
+    """The encoder kernel's algorithm on its storage: doubled bit blocks,
+    the four core steps with their rolls folded into the edge shifts (and
+    cancelling p0 edges dropped), then every extension row from columns
+    < k+4; the codeword equals encode_plain's."""
+    g = tgraphs.lifted_graph(bg, zc)
+    k, m = g.nof_msg_blocks, g.nof_check_blocks
+    rng = np.random.default_rng(zc + bg)
+    msg = torch.from_numpy(_bits(rng, (3, k * zc)))
+    steps = encoder_cuda._core_steps(g, zc)
+    assert len(steps) == m
+    blocks = list(msg.reshape(3, k, zc).unbind(1))
+    doubled = [encoder_cuda.pack_doubled(b) for b in blocks]
+
+    def row(edges):
+        acc = 0
+        for c, s in edges:
+            acc = acc ^ encoder_cuda.rotated_words(doubled[c], s, zc)
+        return _words_to_bits(acc, zc)
+
+    for r in range(4):                               # p0..p3, in order
+        blocks.append(row(steps[r]))
+        doubled.append(encoder_cuda.pack_doubled(blocks[-1]))
+    blocks += [row(edges) for edges in steps[4:]]
+    got = torch.stack(blocks, dim=1).reshape(3, -1)
+    assert torch.equal(got, encoder_cuda.encode_plain(msg, bg, zc))
+
+
+def _decode_compressed(llr, bg, zc, iters, check_period, n_used):
+    """decode_plain's schedule with c2v kept only in the kernel's
+    compressed form (mag, sgn) per (row, lane)."""
+    _, n, _, _ = decoder_cuda._schedule(bg, zc, n_used)
+    layers = decoder_cuda._layer_index(bg, zc, n_used, llr.device)
+    scale = torch.tensor(decoder_cuda.SCALE, dtype=torch.float32)
+    app = decoder_cuda._bf16(llr[:, :n * zc]).contiguous()
+    b = llr.shape[0]
+    state = [(torch.zeros((b, zc), dtype=torch.int64),) * 2 for _ in layers]
+    done = torch.zeros(b, dtype=torch.bool)
+    for _ in range(decoder_cuda._steps(iters, check_period)):
+        if bool(done.all()):
+            break
+        for _ in range(check_period):
+            for li, (_, deg, idx) in enumerate(layers):
+                v = app[:, idx]
+                t = v - decoder_cuda.c2v_expand(*state[li], deg)
+                msg = decoder_cuda._messages(t, scale)
+                new = decoder_cuda.c2v_compress(t)
+                state[li] = tuple(torch.where(done[:, None], o, w)
+                                  for o, w in zip(state[li], new))
+                app[:, idx] = torch.where(done[:, None, None], v,
+                                          decoder_cuda._bf16(t + msg))
+        ok = torch.ones(b, dtype=torch.bool)
+        for _, _, idx in layers:
+            ok &= ~((((app[:, idx] <= 0.0).sum(dim=1) % 2) == 1).any(dim=1))
+        done |= ok
+    k = tgraphs.lifted_graph(bg, zc).nof_msg_blocks
+    return (app[:, :k * zc] <= 0.0).to(torch.int8), done
+
+
+@pytest.mark.parametrize("case", sorted(_DECODE_CASES))
+def test_decode_with_compressed_c2v_matches_plain(case):
+    """The whole decode with c2v stored compressed, as the kernel stores it,
+    gives decode_plain's bits and ok, mixed convergence included."""
+    batch, snr, iters, kw = _DECODE_CASES[case]
+    bg, zc = 2, 32
+    rng = np.random.default_rng(18)
+    msg = _bits(rng, (batch, 10 * zc))
+    cw = encoder_cuda.encode_plain(torch.from_numpy(msg), bg, zc).numpy()
+    llr = _noisy_llr(rng, cw, snr, zc)
+    if "nof_used_blocks" in kw:
+        llr[:, kw["nof_used_blocks"] * zc:] = 0.0
+    llr = torch.from_numpy(np.round(llr))       # exact ties and zeros
+    want = decoder_cuda.decode_plain(llr, bg, zc, iters, **kw)
+    got = _decode_compressed(llr, bg, zc, iters, kw.get("check_period", 1),
+                             kw.get("nof_used_blocks"))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -210,3 +210,27 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("entry", ["SlotPipeline", "UpperPhy",
+                                   "make_payloads"])
+def test_entry_points_default_to_the_card(entry, monkeypatch):
+    """Without a device argument the entry points run on the current CUDA
+    device; where there is none they raise instead of falling back to the
+    CPU.  device="cpu" still runs the plain versions."""
+    from srsran_project_23_5_tpu_torch.models import gnb_mixed as tmixed
+    from srsran_project_23_5_tpu_torch.phy.upper import upper_phy as tupper
+    calls = {
+        "SlotPipeline": lambda **kw: tpipeline.SlotPipeline(
+            tpipeline.PipelineConfig(carrier=tflagship.tiny_carrier()),
+            **kw).device,
+        "UpperPhy": lambda **kw: tupper.UpperPhy(
+            tupper.UpperPhyConfig(nof_prb=24), **kw).device,
+        "make_payloads": lambda **kw: tmixed.make_payloads(
+            tmixed.tiny_mixed(), np.random.default_rng(0), 2,
+            **kw)["tb_ul0"].device,
+    }
+    assert calls[entry](device="cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()

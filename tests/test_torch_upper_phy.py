@@ -45,7 +45,7 @@ REPO = Path(__file__).resolve().parents[1]
 def _phys(nof_prb, bucketed=True, **kw):
     jcfg = upper_phy.UpperPhyConfig(nof_prb=nof_prb, bucketed=bucketed, **kw)
     return (upper_phy.UpperPhy(jcfg),
-            tupper_phy.UpperPhy(convert.from_jax_upper_phy(jcfg)))
+            tupper_phy.UpperPhy(convert.from_jax_upper_phy(jcfg), "cpu"))
 
 
 def _awgn(rng, shape, sigma):
@@ -359,7 +359,7 @@ def test_fapi_carrier_slots_cpu():
     passes combined with rv=2; one program per signature."""
     from srsran_project_23_5_tpu_torch.models import fapi_carrier, gnb_mixed
     car = fapi_carrier.tiny_carrier()
-    phy = tupper_phy.UpperPhy(car.upper_phy)
+    phy = tupper_phy.UpperPhy(car.upper_phy, "cpu")
     gen = torch.Generator().manual_seed(5)
     rng = np.random.default_rng(5)
     gate = gnb_mixed.symbol_gate(car.pdsch_a.qm, car.snr_db)
