@@ -7,7 +7,8 @@ dataclasses (and the 38.212 tables both packages read).  ``from_jax_sh``,
 ``from_jax_message`` take objects of the JAX package as arguments, so this
 module never imports JAX.  ``from_jax_message`` turns a JAX FAPI request or
 PDU into the port's, so both packages can be fed the same requests.  Fields
-the port does not carry yet raise ``NotImplementedError`` naming the field.
+the port does not carry yet (3-layer shared channels, the upper PHY's
+sanitizer) raise ``NotImplementedError`` naming the field.
 """
 from __future__ import annotations
 
@@ -41,13 +42,8 @@ def from_jax_sh(cfg) -> ShConfig:
 
 
 def from_jax_pdcch(cfg) -> pdcch.PdcchConfig:
-    """JAX ``pdcch.PdcchConfig`` → the port's (non-interleaved one-symbol
-    CORESETs only)."""
-    if cfg.interleaved:
-        _refuse("PdcchConfig", "interleaved",
-                "interleaved CCE-to-REG mapping")
-    if cfg.nof_symbols != 1:
-        _refuse("PdcchConfig", "nof_symbols", "a multi-symbol CORESET")
+    """JAX ``pdcch.PdcchConfig`` → the port's (every CORESET: 1-3 symbols,
+    interleaved or not)."""
     return _carry(pdcch.PdcchConfig, cfg)
 
 
@@ -59,21 +55,8 @@ def from_jax_carrier(cfg) -> CarrierConfig:
 
 def from_jax_mixed(cfg) -> MixedSlotConfig:
     """JAX ``gnb_mixed.MixedSlotConfig`` → the port's ``MixedSlotConfig``
-    (flat channels, the time-domain PRACH occasion, every downlink check
-    on, no UE-side decode, non-interleaved one-symbol CORESETs)."""
-    for field in ("tdl_delays", "tdl_gains"):
-        if getattr(cfg, field):
-            _refuse("MixedSlotConfig", field,
-                    "the frequency-selective channel")
-    if not cfg.prach_time_domain:
-        _refuse("MixedSlotConfig", "prach_time_domain",
-                "the grid-level PRACH occasion")
-    if cfg.ue_decode_dl:
-        _refuse("MixedSlotConfig", "ue_decode_dl",
-                "the UE-side PDSCH decode")
-    for field in ("verify_dl_sch", "verify_dl_ctrl"):
-        if not getattr(cfg, field):
-            _refuse("MixedSlotConfig", field, "switching a downlink check off")
+    (every field: the TDL channel, either PRACH occasion, the UE-side
+    decode, the downlink check switches, any CORESET)."""
     shs = {name: from_jax_sh(getattr(cfg, name))
            for name in ("pdsch0", "pdsch1", "pusch0", "pusch1")}
     return _carry(MixedSlotConfig, cfg, **shs,

@@ -1,7 +1,8 @@
 """PRACH preamble generation and detection (TS 38.211 §6.3.3).
 
-Counterpart of ``srsran_project_23_5_tpu/ops/prach.py`` for the unrestricted
-set: frequency-domain Zadoff-Chu preambles are host constants; detection
+Counterpart of ``srsran_project_23_5_tpu/ops/prach.py`` (unrestricted set
+and restricted set A, short 139- and long 839-chip sequences):
+frequency-domain Zadoff-Chu preambles are host constants; detection
 correlates against the root sequence, takes a zero-padded ``torch.fft.ifft``
 to a power-of-two size, and picks the peak of the power-delay profile in the
 window of each cyclic shift (all windows are one gather).
@@ -31,14 +32,44 @@ def num_shifts(length: int, n_cs: int) -> int:
 def generate(root: int, shift_idx: int, length: int, n_cs: int) -> np.ndarray:
     """Frequency-domain preamble of cyclic shift v (host constant): a time
     shift by C_v = v·N_cs is a phase ramp in frequency."""
-    y = root_sequence_freq(root, length)
-    cv = shift_idx * n_cs
-    k = np.arange(length)
-    return (y * np.exp(2j * np.pi * cv * k / length)).astype(np.complex64)
+    return generate_cv(root, shift_idx * n_cs, length)
+
+
+@functools.lru_cache(maxsize=256)
+def restricted_a_cv(length: int, n_cs: int, root: int) -> tuple[int, ...]:
+    """Restricted set A cyclic shifts C_v (TS 38.211 §6.3.3.1): d_u is the
+    cyclic distance a one-chip Doppler offset moves root u's correlation
+    peak, and the shifts are grouped so that a preamble and its Doppler
+    images never collide.  Empty where the root has no shifts at N_cs."""
+    d = pow(root, -1, length)            # u·d ≡ 1 (mod L), folded < L/2
+    d_u = d if 2 * d < length else length - d
+    if n_cs <= d_u < length / 3:
+        n_shift = d_u // n_cs
+        d_start = 2 * d_u + n_shift * n_cs
+        n_group = length // d_start
+        n_shift_bar = max((length - 2 * d_u - n_group * d_start) // n_cs, 0)
+    elif length / 3 <= d_u <= (length - n_cs) // 2:
+        n_shift = (length - 2 * d_u) // n_cs
+        d_start = length - 2 * d_u + n_shift * n_cs
+        n_group = d_u // d_start
+        n_shift_bar = min(max((d_u - n_group * d_start) // n_cs, 0),
+                          n_shift)
+    else:
+        return ()
+    w = n_shift * n_group + n_shift_bar
+    return tuple(d_start * (v // n_shift) + (v % n_shift) * n_cs
+                 for v in range(w))
 
 
 def unrestricted_cv(length: int, n_cs: int) -> tuple[int, ...]:
     return tuple(v * n_cs for v in range(num_shifts(length, n_cs)))
+
+
+def generate_cv(root: int, cv: int, length: int) -> np.ndarray:
+    """Frequency-domain preamble of an explicit cyclic shift C_v."""
+    y = root_sequence_freq(root, length)
+    k = np.arange(length)
+    return (y * np.exp(2j * np.pi * cv * k / length)).astype(np.complex64)
 
 
 @functools.lru_cache(maxsize=64)
@@ -85,10 +116,16 @@ def detect(rx_freq: torch.Tensor, root: int, length: int, n_cs: int,
            dft_size: int = 2048, restricted_set: str = "unrestricted"):
     """Detect preambles in received frequency-domain PRACH windows
     [..., length] → (metric [..., n_shifts], delay [..., n_shifts] in
-    ZC-chip units, rssi [...])."""
-    if restricted_set != "unrestricted":
-        raise NotImplementedError(
-            f"PRACH restricted set {restricted_set!r} is not ported yet")
+    ZC-chip units, rssi [...]).  restricted_set: "unrestricted" or
+    "type_a"."""
+    if restricted_set == "type_a":
+        cvs = restricted_a_cv(length, n_cs, root)
+        if not cvs:
+            raise ValueError(
+                f"no restricted-A shifts for root {root}, N_cs {n_cs}")
+    elif restricted_set == "unrestricted":
+        cvs = unrestricted_cv(length, n_cs)
+    else:
+        raise ValueError(f"unknown PRACH restricted set {restricted_set!r}")
     win = n_cs if n_cs else length
-    return detect_cv(rx_freq, root, length, unrestricted_cv(length, n_cs),
-                     win, dft_size)
+    return detect_cv(rx_freq, root, length, cvs, win, dft_size)

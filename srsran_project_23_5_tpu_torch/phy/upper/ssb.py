@@ -1,15 +1,16 @@
 """SSB processor: PSS, SSS, PBCH encode/modulate and SS/PBCH block assembly.
 
 Counterpart of ``srsran_project_23_5_tpu/phy/upper/ssb.py`` (TS 38.211
-§7.4.2-§7.4.3, TS 38.212 §7.1), transmit side.  The block is rendered as a
-[B, 4, 240] tensor that the caller places at its offset.  The sequences
-(PSS, SSS, both PBCH scramblings, the PBCH DM-RS) are configuration and are
-baked on the host.
+§7.4.2-§7.4.3, TS 38.212 §7.1): the block is rendered as a [B, 4, 240]
+tensor that the caller places at its offset, and the PBCH is received from
+such a block.  The sequences (PSS, SSS, both PBCH scramblings, the PBCH
+DM-RS) and the RE positions are configuration and are baked on the host.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import typing
 
 import numpy as np
 import torch
@@ -17,6 +18,7 @@ import torch
 from ...ops import crc as crc_ops
 from ...ops import gold, modulation
 from ...ops.polar import code as polar_code
+from ...ops.polar import decoder as polar_decoder
 from ...ops.polar import encoder as polar_encoder
 from ...ops.polar import rate_match as polar_rm
 
@@ -123,32 +125,77 @@ def dmrs_pbch_pilots_np(cfg: SsbConfig) -> np.ndarray:
             ).astype(np.complex64)
 
 
+def _dmrs_positions(cfg: SsbConfig) -> tuple[np.ndarray, np.ndarray]:
+    """(symbol, subcarrier) of the PBCH DM-RS within the 4×240 block
+    (v = PCI mod 4), in pilot order."""
+    v = cfg.pci % 4
+    syms, scs = [], []
+    for sc in range(v, SSB_NSC, 4):
+        syms += [1, 3]
+        scs += [sc, sc]
+    for sc in [*range(v, 48, 4), *range(192 + v, SSB_NSC, 4)]:
+        syms.append(2)
+        scs.append(sc)
+    return np.asarray(syms, np.int32), np.asarray(scs, np.int32)
+
+
+def _data_positions(cfg: SsbConfig) -> tuple[np.ndarray, np.ndarray]:
+    """(symbol, subcarrier) of the PBCH data REs, in symbol order: symbol
+    1, symbol 2 below and above the SSS, symbol 3."""
+    v = cfg.pci % 4
+    syms, scs = [], []
+    for sym, rng in ((1, range(SSB_NSC)), (2, range(48)),
+                     (2, range(192, SSB_NSC)), (3, range(SSB_NSC))):
+        for sc in rng:
+            if sc % 4 != v:
+                syms.append(sym)
+                scs.append(sc)
+    return np.asarray(syms, np.int32), np.asarray(scs, np.int32)
+
+
+class _Tables(typing.NamedTuple):
+    g_inv: torch.Tensor          # payload interleaver a = payload[g_inv]
+    g: torch.Tensor              # its inverse: payload = a[g]
+    first: torch.Tensor          # first scrambling [32]
+    pi: torch.Tensor             # polar input interleaver [56]
+    pi_inv: torch.Tensor
+    second: torch.Tensor         # second scrambling [864]
+    pilots: torch.Tensor         # PBCH DM-RS [144]
+    pss: torch.Tensor
+    sss: torch.Tensor
+    data_idx: torch.Tensor       # PBCH data REs, flat into [4·240]
+
+
 @functools.lru_cache(maxsize=16)
-def _tables(cfg: SsbConfig, device: torch.device):
-    """(payload interleaver, first scrambling, input interleaver, second
-    scrambling, DM-RS pilots, PSS, SSS) on `device`."""
+def _tables(cfg: SsbConfig, device: torch.device) -> _Tables:
+    """The configuration's host-baked constants on `device`."""
     to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-    return (to(np.asarray(_G_INV, np.int64)), to(_first_scrambling_seq(cfg)),
-            to(polar_code.input_interleaver(PBCH_K).astype(np.int64)),
-            to(_second_scrambling_seq(cfg)), to(dmrs_pbch_pilots_np(cfg)),
-            to(pss_sequence(cfg.nid2).astype(np.complex64)),
-            to(sss_sequence(cfg.nid1, cfg.nid2).astype(np.complex64)))
+    pi = polar_code.input_interleaver(PBCH_K).astype(np.int64)
+    dsym, dsc = _data_positions(cfg)
+    return _Tables(
+        g_inv=to(np.asarray(_G_INV, np.int64)), g=to(np.asarray(_G, np.int64)),
+        first=to(_first_scrambling_seq(cfg)), pi=to(pi),
+        pi_inv=to(np.argsort(pi)), second=to(_second_scrambling_seq(cfg)),
+        pilots=to(dmrs_pbch_pilots_np(cfg)),
+        pss=to(pss_sequence(cfg.nid2).astype(np.complex64)),
+        sss=to(sss_sequence(cfg.nid1, cfg.nid2).astype(np.complex64)),
+        data_idx=to(dsym.astype(np.int64) * SSB_NSC + dsc))
 
 
 def dmrs_pbch_pilots(cfg: SsbConfig,
                      device: torch.device | str) -> torch.Tensor:
     """[144] QPSK PBCH DM-RS pilots on `device`."""
-    return _tables(cfg, torch.device(device))[4]
+    return _tables(cfg, torch.device(device)).pilots
 
 
 def pbch_encode(payload: torch.Tensor, cfg: SsbConfig) -> torch.Tensor:
     """[..., 32] payload bits → [..., 864] coded bits."""
-    g_inv, first, pi, second, _, _, _ = _tables(cfg, payload.device)
-    a = payload[..., g_inv] ^ first
-    with_crc = crc_ops.crc_attach(a, "crc24C")[..., pi]
+    t = _tables(cfg, payload.device)
+    a = payload[..., t.g_inv] ^ t.first
+    with_crc = crc_ops.crc_attach(a, "crc24C")[..., t.pi]
     code = _pbch_code()
     u = polar_encoder.allocate(with_crc, code.info_set, code.n)
-    return polar_rm.match(polar_encoder.encode(u), code) ^ second
+    return polar_rm.match(polar_encoder.encode(u), code) ^ t.second
 
 
 def ssb_assemble(payload: torch.Tensor, cfg: SsbConfig,
@@ -159,11 +206,11 @@ def ssb_assemble(payload: torch.Tensor, cfg: SsbConfig,
     k ≡ v (mod 4) and data at the other offsets, in the order of the
     receiver's data and DM-RS positions.
     """
-    _, _, _, _, pil, pss, sss = _tables(cfg, payload.device)
+    t = _tables(cfg, payload.device)
     v = cfg.pci % 4
     bsz = payload.shape[0]
     syms = modulation.modulate(pbch_encode(payload, cfg), 2) * amplitude
-    pil = pil * amplitude
+    pil = t.pilots * amplitude
     dcols = [j for j in range(4) if j != v]
 
     def comb_rows(data_chunk: torch.Tensor, pil_chunk: torch.Tensor
@@ -177,10 +224,33 @@ def ssb_assemble(payload: torch.Tensor, cfg: SsbConfig,
     # data order: sym1 (180), sym2 lo (36), sym2 hi (36), sym3 (180);
     # pilot order: sym1/sym3 interleaved per subcarrier (120), sym2 lo+hi (24)
     block = syms.new_zeros((bsz, SSB_NSYM, SSB_NSC))
-    block[:, 0, 56:183] = amplitude * pss
+    block[:, 0, 56:183] = amplitude * t.pss
     block[:, 1] = comb_rows(syms[:, :180], pil[0:120:2])
     block[:, 2, 0:48] = comb_rows(syms[:, 180:216], pil[120:132])
     block[:, 2, 192:240] = comb_rows(syms[:, 216:252], pil[132:144])
-    block[:, 2, 56:183] = amplitude * sss
+    block[:, 2, 56:183] = amplitude * t.sss
     block[:, 3] = comb_rows(syms[:, 252:432], pil[1:120:2])
     return block
+
+
+def pbch_decode(llr: torch.Tensor, cfg: SsbConfig
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """[..., 864] PBCH LLRs → (payload [..., 32] int8, crc_ok [...])."""
+    t = _tables(cfg, llr.device)
+    code = _pbch_code()
+    llr = llr * (1.0 - 2.0 * t.second.to(torch.float32))
+    u = polar_decoder.decode(polar_rm.dematch(llr, code), code)
+    de = polar_encoder.extract_message(u, code.info_set)[..., t.pi_inv]
+    a = de[..., :PBCH_A] ^ t.first
+    return a[..., t.g], crc_ops.crc_check(de, "crc24C")
+
+
+def ssb_receive_pbch(block: torch.Tensor, cfg: SsbConfig,
+                     noise_var: float = 0.05
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Decode the PBCH of received [B, 4, 240] SS/PBCH blocks (loopback; no
+    equalisation) → (payload [B, 32], crc_ok [B])."""
+    y = block.flatten(-2)[..., _tables(cfg, block.device).data_idx]
+    nv = torch.full(y.shape, noise_var, dtype=torch.float32,
+                    device=y.device)
+    return pbch_decode(modulation.demodulate_soft(y, nv, 2), cfg)

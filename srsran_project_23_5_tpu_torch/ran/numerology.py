@@ -1,9 +1,11 @@
 """NR numerology and slot timing math (TS 38.211 §4.2-4.4, §5.3.1).
 
 Re-hosted from ``srsran_project_23_5_tpu/ran/numerology.py`` (the functions
-the OFDM slice needs, unchanged).
+and the slot clock the port needs, unchanged).
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
@@ -16,6 +18,14 @@ _REF_NFFT = 2048
 def scs_khz(mu: int) -> int:
     """Subcarrier spacing in kHz for numerology mu (TS 38.211 Table 4.2-1)."""
     return 15 << mu
+
+
+def slots_per_subframe(mu: int) -> int:
+    return 1 << mu
+
+
+def slots_per_frame(mu: int) -> int:
+    return 10 << mu
 
 
 def sample_rate_hz(mu: int, nfft: int) -> float:
@@ -46,3 +56,29 @@ def cp_lengths(mu: int, nfft: int, slot_in_subframe: int = 0) -> np.ndarray:
 def slot_num_samples(mu: int, nfft: int, slot_in_subframe: int = 0) -> int:
     return (int(cp_lengths(mu, nfft, slot_in_subframe).sum())
             + MAX_NSYMB_PER_SLOT * nfft)
+
+
+@dataclasses.dataclass(frozen=True)
+class SlotPoint:
+    """A (numerology, system frame, slot) triple: the slot clock; arithmetic
+    wraps at the 1024-frame SFN period."""
+    mu: int
+    sfn: int
+    slot_in_frame: int
+
+    @property
+    def nof_slots_per_frame(self) -> int:
+        return slots_per_frame(self.mu)
+
+    @property
+    def slot_in_subframe(self) -> int:
+        return self.slot_in_frame % slots_per_subframe(self.mu)
+
+    def count(self) -> int:
+        """Monotonic slot count within the 1024-frame period."""
+        return self.sfn * self.nof_slots_per_frame + self.slot_in_frame
+
+    def __add__(self, nof_slots: int) -> "SlotPoint":
+        total = (self.count() + nof_slots) % (1024 * self.nof_slots_per_frame)
+        return SlotPoint(self.mu, total // self.nof_slots_per_frame,
+                         total % self.nof_slots_per_frame)

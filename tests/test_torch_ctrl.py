@@ -358,6 +358,12 @@ def test_prach_detect_matches(root, ncs, preamble, delay):
 
 
 def test_prach_refuses_restricted_set():
-    with pytest.raises(NotImplementedError, match="restricted"):
-        tprach.detect(torch.zeros((1, 139), dtype=torch.complex64), 22, 139,
-                      13, restricted_set="type_a")
+    """Restricted set A is ported; a root with no restricted-A shifts at
+    N_cs and an unknown set name are refused."""
+    rx = torch.zeros((1, 139), dtype=torch.complex64)
+    metric, _, _ = tprach.detect(rx, 22, 139, 13, restricted_set="type_a")
+    assert metric.shape == (1, len(prach.restricted_a_cv(139, 13, 22)))
+    with pytest.raises(ValueError, match="no restricted-A shifts"):
+        tprach.detect(rx, 1, 139, 13, restricted_set="type_a")
+    with pytest.raises(ValueError, match="restricted set"):
+        tprach.detect(rx, 22, 139, 13, restricted_set="type_b")

@@ -16,8 +16,11 @@ from srsran_project_23_5_tpu_torch.models import (fapi_carrier, gnb_flagship,
                                                   gnb_mixed)
 from srsran_project_23_5_tpu_torch.ops.ldpc import (decoder_cuda,
                                                     encoder_cuda, graphs)
+from srsran_project_23_5_tpu_torch.ops import prach
 from srsran_project_23_5_tpu_torch.phy import pipeline
-from srsran_project_23_5_tpu_torch.phy.upper import slot_programs, upper_phy
+from srsran_project_23_5_tpu_torch.phy.lower import lower_phy, prach_demod
+from srsran_project_23_5_tpu_torch.phy.upper import (pdcch, slot_programs, ssb,
+                                                     upper_phy)
 
 torch.set_num_threads(1)
 
@@ -68,7 +71,10 @@ def test_encoder_kernel_matches_plain(cuda, bg, zc, batch):
     (1, 384, 16, np.linspace(1, 5, 16), 40), (2, 36, 13, 3.0, None),
     # the mixed slot's two PUSCH at 8 slots per batch
     (1, 384, 136, 6.0, 35), (1, 384, 136, np.linspace(2, 6, 136), 35),
-    (1, 352, 64, 6.0, 36), (1, 352, 64, np.linspace(2, 6, 64), 36)])
+    (1, 352, 64, 6.0, 36), (1, 352, 64, np.linspace(2, 6, 64), 36),
+    # its two PDSCH decoded on the UE side (ue_decode_dl)
+    (1, 384, 128, 6.0, 34), (1, 384, 128, np.linspace(2, 6, 128), 34),
+    (1, 384, 56, 6.0, 34), (1, 384, 56, np.linspace(2, 6, 56), 34)])
 def test_decoder_kernel_matches_plain(cuda, bg, zc, batch, snr, n_used):
     rng = np.random.default_rng(11)
     g = graphs.lifted_graph(bg, zc)
@@ -123,6 +129,29 @@ def test_decoder_kernel_full_bg1_graph_matches_plain(cuda, zc, snr):
 @pytest.mark.parametrize("snr", [2.0, np.linspace(-5.0, -1.0, 24)])
 def test_decoder_kernel_full_bg2_graph_matches_plain(cuda, zc, snr):
     _full_graph_matches_plain(cuda, 2, zc, snr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zc,batch", [(384, 136), (352, 64)])
+@pytest.mark.parametrize("snr", [1.5, "sweep"])
+def test_decoder_kernel_full_graph_harq_batch_shapes(cuda, zc, batch, snr):
+    """The HARQ batch's rv=2 and combined decodes of a 273-PRB mixed slot
+    at 8 slots per batch: the full BG1 graph, one CTA per SM, so x136 is a
+    second wave on 132 SMs."""
+    rng = np.random.default_rng(zc)
+    g = graphs.lifted_graph(1, zc)
+    msg = rng.integers(0, 2, size=(batch, g.nof_msg_blocks * zc)
+                       ).astype(np.int8)
+    cw = encoder_cuda.encode_plain(torch.from_numpy(msg), 1, zc).numpy()
+    snr_db = np.linspace(-1.0, 2.5, batch) if snr == "sweep" else snr
+    llr = torch.from_numpy(_noisy_llr(rng, cw, snr_db, zc)).to(cuda)
+    bits, ok = decoder_cuda.decode(llr, 1, zc)
+    w_bits, w_ok = decoder_cuda.decode_plain(llr, 1, zc)
+    torch.cuda.synchronize()
+    assert torch.equal(ok, w_ok) and torch.equal(bits, w_bits)
+    n_ok = int(ok.sum())
+    assert n_ok == batch if snr != "sweep" else 0 < n_ok < batch
+    assert decoder_cuda.ctas_per_sm(1, zc, None) == 1
 
 
 @pytest.mark.cuda
@@ -242,8 +271,8 @@ def test_tiny_mixed_on_card_matches_cpu(cuda):
     pay = gnb_mixed.make_payloads(cfg, np.random.default_rng(12), 2, "cpu")
     noise = gnb_mixed.draw_noise(cfg, 2, torch.Generator().manual_seed(12))
     want = gnb_mixed.mixed_slot_batch(pay, *noise, cfg)
-    w_dec = gnb_mixed.decode_uplink(gnb_mixed._mixed_front(pay, *noise, cfg),
-                                    cfg)
+    w_dec = gnb_mixed.decode_front(gnb_mixed._mixed_front(pay, *noise, cfg),
+                                   cfg)
     g_pay = {k: v.to(cuda) for k, v in pay.items()}
     g_noise = [n.to(cuda) for n in noise]
     enc0, dec0 = encoder_cuda.encode.launches, decoder_cuda.decode.launches
@@ -257,7 +286,7 @@ def test_tiny_mixed_on_card_matches_cpu(cuda):
     for f in ("sinr_ul_db", "sinr_dl0_db", "csi_sinr_db"):
         assert float((getattr(got, f).cpu() - getattr(want, f)).abs().max()
                      ) < 0.1, f
-    g_dec = gnb_mixed.decode_uplink(
+    g_dec = gnb_mixed.decode_front(
         gnb_mixed._mixed_front(g_pay, *g_noise, cfg), cfg)
     for k in w_dec:
         assert all(torch.equal(a.cpu(), b) for a, b in zip(g_dec[k], w_dec[k]))
@@ -276,3 +305,118 @@ def test_mixed_slot_pipeline_on_card(cuda):
         pipe.submit(pay)
     results = pipe.drain()
     assert len(results) == 3 and all(ok.all() for ok, _ in results)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["tdl", "ue_decode_dl", "grid_prach"])
+def test_tiny_mixed_variant_on_card_matches_cpu(cuda, variant):
+    """The slot's options on the card and on the CPU (same payloads and
+    noise): every verdict equal; ue_decode_dl adds two decoder launches."""
+    cfg = {"tdl": gnb_mixed.tdl_channel(gnb_mixed.tiny_mixed()),
+           "ue_decode_dl": gnb_mixed.tiny_mixed(ue_decode_dl=True),
+           "grid_prach": gnb_mixed.tiny_mixed(prach_time_domain=False)
+           }[variant]
+    pay = gnb_mixed.make_payloads(cfg, np.random.default_rng(15), 2, "cpu")
+    noise = gnb_mixed.draw_noise(cfg, 2, torch.Generator().manual_seed(15))
+    want = gnb_mixed.mixed_slot_batch(pay, *noise, cfg)
+    dec0 = decoder_cuda.decode.launches
+    got = gnb_mixed.mixed_slot_batch({k: v.to(cuda) for k, v in pay.items()},
+                                     *(n.to(cuda) for n in noise), cfg)
+    torch.cuda.synchronize()
+    assert decoder_cuda.decode.launches == dec0 + len(
+        gnb_mixed.decode_names(cfg))
+    assert bool(want.ok.all())
+    for f in _MIXED_FLAGS:
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+
+
+@pytest.mark.cuda
+def test_harq_retx_batch_on_card_matches_cpu(cuda):
+    cfg = gnb_mixed.tiny_mixed()
+    pay = gnb_mixed.make_payloads(cfg, np.random.default_rng(16), 2, "cpu")
+    gen = torch.Generator().manual_seed(16)
+    c1 = gnb_mixed.tiny_mixed(snr_db=1.5)
+    noise = (*gnb_mixed.draw_noise(c1, 2, gen), *gnb_mixed.draw_noise(c1, 2,
+                                                                     gen))
+    want = gnb_mixed.harq_retx_batch(pay, noise, cfg, 1.5, device="cpu")
+    dec0 = decoder_cuda.decode.launches
+    got = gnb_mixed.harq_retx_batch(pay, noise, cfg, 1.5, device=cuda)
+    torch.cuda.synchronize()
+    assert decoder_cuda.decode.launches == dec0 + 6
+    for ue in want:
+        for v in want[ue]:
+            assert torch.equal(got[ue][v].cpu(), want[ue][v]), (ue, v)
+        assert want[ue]["combined_ok"].all()
+        assert not (want[ue]["first_ok"].any() or want[ue]["retx_ok"].any())
+
+
+@pytest.mark.cuda
+def test_receivers_on_card_match_cpu(cuda):
+    """pdcch_blind_receive, pbch_decode and a long-PRACH detect on CUDA
+    tensors give the CPU's results."""
+    rng = np.random.default_rng(17)
+    cfg = pdcch.PdcchConfig(rnti=0x17, payload_size=24, aggregation_level=2,
+                            cce_index=4, n_id=3, n_rnti=0x17)
+    grid = pdcch.pdcch_transmit(
+        torch.from_numpy(rng.integers(0, 2, (2, 24)).astype(np.int8)), cfg,
+        torch.zeros((2, 14, 52 * 12), dtype=torch.complex64))
+    grid = grid + 0.05 * torch.randn(grid.shape, dtype=torch.complex64,
+                                     generator=torch.Generator().manual_seed(1))
+    cands = torch.tensor([0, 2, 4, 6])
+    want = pdcch.pdcch_blind_receive(grid, cfg, cands)
+    got = pdcch.pdcch_blind_receive(grid.to(cuda), cfg, cands.to(cuda))
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    assert want[1].tolist() == [[False, False, True, False]] * 2
+
+    scfg = ssb.SsbConfig(pci=123, ssb_idx=2, sfn=100)
+    pay = torch.from_numpy(rng.integers(0, 2, (2, 32)).astype(np.int8))
+    coded = ssb.pbch_encode(pay, scfg).to(torch.float32)
+    llr = 8.0 * (1.0 - 2.0 * coded) + 3.0 * torch.from_numpy(
+        rng.standard_normal(coded.shape).astype(np.float32))
+    want = ssb.pbch_decode(llr, scfg)
+    got = ssb.pbch_decode(llr.to(cuda), scfg)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    assert want[1].all() and torch.equal(want[0], pay)
+
+    fft, cp = prach_demod.long_format_geometry("0", 30.72e6)[::2]
+    y = prach.generate_cv(129, 7 * 13, 839)
+    bins = np.zeros(fft, np.complex64)
+    bins[:839] = y
+    period = np.fft.ifft(bins) * fft / np.sqrt(839)
+    sig = np.concatenate([period[-cp:], period]).astype(np.complex64)
+    sig = torch.from_numpy(sig + (0.3 * (rng.standard_normal(sig.shape) + 1j
+                                         * rng.standard_normal(sig.shape))
+                                  ).astype(np.complex64))
+    out = []
+    for dev in ("cpu", cuda):
+        rx = prach_demod.demodulate(sig.to(dev), fft, 839, 0, cp)
+        out.append(prach.detect(rx[None], 129, 839, 13))
+    for a, b in zip(out[1], out[0]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-4 * float(b.abs().max()))
+    assert int(out[1][0][0].argmax()) == 7
+
+
+@pytest.mark.cuda
+def test_async_lower_phy_on_card_matches_cpu(cuda):
+    cfg = lower_phy.LowerPhyConfig(mu=1, nfft=512, nof_prb=24)
+    rng = np.random.default_rng(18)
+    grids = [torch.from_numpy((rng.standard_normal((14, 288)) + 1j
+                               * rng.standard_normal((14, 288))
+                               ).astype(np.complex64)) for _ in range(3)]
+    out = {}
+    for dev in ("cpu", cuda):
+        got = {}
+        eng = lower_phy.AsyncLowerPhy(
+            cfg, lambda s: grids[s] if s < 3 else None,
+            lambda s, g: got.__setitem__(s, g.cpu()), depth=2, device=dev)
+        total = sum(eng.timeline.slot_size(s) for s in range(3))
+        while total > 0:
+            n = min(1001, total)
+            eng.push_rx(eng.pull_tx(n))
+            total -= n
+        out[str(dev)] = got
+    for s in range(3):
+        a, b = out[str(cuda)][s], out["cpu"][s]
+        assert float((a - b).abs().max()) < 1e-4 * float(b.abs().max())
+        assert float((b - grids[s]).abs().max()) < 1e-3

@@ -2,8 +2,9 @@
 stages (layer mapping, precoding, the two-layer estimator and equaliser,
 two-layer PUSCH transmit and receive, reserved REs, the UE-side symbol
 check), the slot's own checks, the whole ``tiny_mixed`` slot with the JAX
-noise draws, the slot pipeline, the configuration conversion, and the
-port's independence from JAX.
+noise draws and its options (the TDL channel, the UE-side decode, the grid
+PRACH, the checks off), the slot pipeline, the configuration conversion,
+and the port's independence from JAX.
 
 Inputs are made with numpy from a seed.  The port works on a leading slot
 batch; every batched port call is made with two distinct slots and held
@@ -29,6 +30,7 @@ import jax.numpy as jnp
 from srsran_project_23_5_tpu.models import gnb_mixed
 from srsran_project_23_5_tpu.ops import equalizer, estimator, precoding
 from srsran_project_23_5_tpu.phy.upper import sch, ulsch
+from srsran_project_23_5_tpu.testing import channels
 from srsran_project_23_5_tpu_torch import convert
 from srsran_project_23_5_tpu_torch.models import gnb_mixed as tmixed
 from srsran_project_23_5_tpu_torch.ops import equalizer as tequalizer
@@ -38,6 +40,7 @@ from srsran_project_23_5_tpu_torch.ops.ldpc import decoder_cuda
 from srsran_project_23_5_tpu_torch.phy import pipeline as tpipeline
 from srsran_project_23_5_tpu_torch.phy.upper import sch as tsch
 from srsran_project_23_5_tpu_torch.ran.constants import LLR_MAX
+from srsran_project_23_5_tpu_torch.testing import channels as tchannels
 
 torch.set_num_threads(1)
 
@@ -175,8 +178,31 @@ def test_from_jax_mixed_round_trip(name):
         c, pdcch_ul=dataclasses.replace(c.pdcch_ul, nof_symbols=3)),
         "nof_symbols", id="pdcch_ul-nof_symbols")])
 def test_from_jax_mixed_refuses_unported_fields(over, field):
-    with pytest.raises(NotImplementedError, match=f"\\.{field}"):
-        convert.from_jax_mixed(over(gnb_mixed.tiny_mixed()))
+    """Every field of the JAX mixed slot is carried over, field by field,
+    the TDL channel, both PRACH occasions, the UE-side decode, the check
+    switches and interleaved or multi-symbol CORESETs among them; only a
+    3-layer shared channel is still refused."""
+    jcfg = over(gnb_mixed.tiny_mixed())
+    if field == "nof_layers":
+        with pytest.raises(NotImplementedError, match=f"\\.{field}"):
+            convert.from_jax_mixed(jcfg)
+        return
+    tcfg = convert.from_jax_mixed(jcfg)
+    assert_carried(tcfg, jcfg)
+    assert tcfg != tmixed.tiny_mixed()
+
+
+def assert_carried(tcfg, jcfg) -> None:
+    """The port's config holds every field of the JAX one, equal value for
+    value (nested configs field by field)."""
+    assert ([f.name for f in dataclasses.fields(tcfg)]
+            == [f.name for f in dataclasses.fields(jcfg)])
+    for f in dataclasses.fields(tcfg):
+        t, j = getattr(tcfg, f.name), getattr(jcfg, f.name)
+        if dataclasses.is_dataclass(t):
+            assert_carried(t, j)
+        else:
+            assert t == j, f.name
 
 
 # -------------------------------------------------------------------- MIMO
@@ -409,6 +435,78 @@ def test_mixed_slot_matches_jax_with_same_noise(tiny):
         for f in ("pucch_metric", "prach_metric", "ssb_match", "pss_corr"):
             np.testing.assert_allclose(float(getattr(res, f)[b]),
                                        float(want[f]), rtol=1e-3)
+
+
+# the slot's options, each against the JAX slot with the JAX noise draws:
+# the JAX test's TDL slot (symbol checks, time-domain PRACH through the
+# taps); the TDL slot with the UE-side decode and the grid PRACH; the
+# downlink checks off
+_VARIANTS = {
+    "tdl": lambda: gnb_mixed.tdl_channel(
+        gnb_mixed.tiny_mixed(snr_db=25.0), delays=(0, 3, 7),
+        gains_db=(0.0, -4.0, -8.0)),
+    "tdl-ue_decode-grid_prach": lambda: gnb_mixed.tdl_channel(
+        gnb_mixed.tiny_mixed(ue_decode_dl=True, prach_time_domain=False)),
+    "checks_off": lambda: gnb_mixed.tiny_mixed(verify_dl_sch=False,
+                                               verify_dl_ctrl=False),
+}
+
+
+@pytest.mark.parametrize("variant", sorted(_VARIANTS))
+def test_mixed_slot_variant_matches_jax_with_same_noise(variant):
+    jax.clear_caches()     # XLA:CPU faults on accumulated giant compiles
+    jcfg = _VARIANTS[variant]()
+    tcfg = convert.from_jax_mixed(jcfg)
+    assert_carried(tcfg, jcfg)
+    payloads = gnb_mixed.make_payloads(jcfg, np.random.default_rng(5),
+                                       batch=B)
+    keys = [jax.random.PRNGKey(2 + b) for b in range(B)]
+    fn = jax.jit(lambda p, k: gnb_mixed.mixed_slot_dict(p, k, jcfg))
+    sigma = tmixed.noise_sigma(tcfg)
+    noise = [_jax_noise(k, sigma, jcfg.slot_samples) for k in keys]
+    res = tmixed.mixed_slot_batch(
+        {k: torch.from_numpy(np.array(v)) for k, v in payloads.items()},
+        *(torch.from_numpy(np.stack([np.asarray(n[i]) for n in noise]))
+          for i in range(2)), tcfg)
+    dl_bits = {"dl0_match": jcfg.pdsch0.nof_bits,
+               "dl1_match": jcfg.pdsch1.nof_bits}
+    for b in range(B):
+        want = {k: np.asarray(v) for k, v in fn(
+            {n: x[b] for n, x in payloads.items()}, keys[b]).items()}
+        assert bool(want["ok"]), (variant, want)
+        for f in _BOOL_FIELDS:
+            assert bool(getattr(res, f)[b]) == bool(want[f]), (b, f)
+        for f, n in dl_bits.items():
+            # symbol-check fraction (per RE) or hard-bit fraction (per bit)
+            assert abs(float(getattr(res, f)[b]) - float(want[f])) <= 2.0 / n
+        for f in ("sinr_ul_db", "sinr_ul0_db", "sinr_ul1_db", "sinr_dl0_db",
+                  "csi_sinr_db"):
+            assert abs(float(getattr(res, f)[b]) - float(want[f])) < 0.01, f
+        assert abs(float(res.prach_ta_samples[b])
+                   - float(want["prach_ta_samples"])) < 0.01
+        for f in ("pdcch_match", "pucch_metric", "prach_metric", "ssb_match",
+                  "pss_corr"):
+            np.testing.assert_allclose(float(getattr(res, f)[b]),
+                                       float(want[f]), rtol=1e-3)
+
+
+@pytest.mark.parametrize("delays,gains", [
+    ((0, 3, 7), (0.0, -4.0, -8.0)), ((0, 4, 9), (0.0, -3.0, -6.0)),
+    ((2,), (0.0,)), ((), ())])
+def test_tdl_apply_matches(delays, gains):
+    """Taps at integer delays (pad + slice) over the last axis, real and
+    complex gains; no taps is the identity."""
+    rng = np.random.default_rng(len(delays))
+    x = _cplx(rng, (B, 2, 500))
+    d, g = tchannels.normalize_taps(delays, gains)
+    assert (d, g) == channels.normalize_taps(delays, gains)
+    for gg in (g, tuple(complex(v) * np.exp(0.3j * i)
+                        for i, v in enumerate(g))):
+        got = tchannels.tdl_apply(torch.from_numpy(x), d, gg)
+        want = np.asarray(channels.tdl_apply(jnp.asarray(x), d, gg))
+        _close(got, want, 1e-6)
+    assert tmixed.tdl_channel(tmixed.tiny_mixed()) == convert.from_jax_mixed(
+        gnb_mixed.tdl_channel(gnb_mixed.tiny_mixed()))
 
 
 def test_mixed_slot_batch_equals_per_slot(tiny):

@@ -166,7 +166,7 @@ def test_convert_round_trip(name):
 
 
 def _unported(cls, field, value):
-    """A JAX object with one still-unported field set, and its converter."""
+    """A JAX object with one field set, and its converter."""
     if cls == "ShConfig":
         return (dataclasses.replace(gnb_flagship.tiny_carrier().sh,
                                     **{field: value}), convert.from_jax_sh)
@@ -186,21 +186,39 @@ def _unported(cls, field, value):
     ("PdcchConfig", "interleaved", True), ("PdcchConfig", "nof_symbols", 2),
     ("UpperPhyConfig", "sanitize", True)])
 def test_convert_refuses_unported_fields(cls, field, value):
+    """A 3-layer shared channel and the upper PHY's sanitizer are refused,
+    naming the field; the TDL channel, the UE-side decode and interleaved or
+    multi-symbol CORESETs are carried over field by field."""
     obj, conv = _unported(cls, field, value)
-    with pytest.raises(NotImplementedError, match=f"{cls}.{field}"):
-        conv(obj)
+    if (cls, field) in (("ShConfig", "nof_layers"),
+                        ("UpperPhyConfig", "sanitize")):
+        with pytest.raises(NotImplementedError, match=f"{cls}.{field}"):
+            conv(obj)
+        return
+    got = conv(obj)
+    assert getattr(got, field) == value
+    assert ([f.name for f in dataclasses.fields(got)]
+            == [f.name for f in dataclasses.fields(obj)])
+    for f in dataclasses.fields(got):
+        g, w = getattr(got, f.name), getattr(obj, f.name)
+        if dataclasses.is_dataclass(g):
+            assert dataclasses.asdict(g) == dataclasses.asdict(w), f.name
+        else:
+            assert g == w, f.name
 
 
 def test_port_imports_no_jax():
-    """The port's slice modules (and chip_smoke.py's imports) load neither
-    JAX nor anything of the JAX package."""
+    """The port's modules (and chip_smoke.py's imports) load neither JAX
+    nor anything of the JAX package."""
+    mods = ("phy.pipeline", "convert", "utils.kernels", "phy.upper.upper_phy",
+            "phy.upper.slot_programs", "fapi.messages", "models.gnb_mixed",
+            "models.fapi_carrier", "testing.channels", "phy.lower.lower_phy",
+            "phy.lower.amplitude", "phy.lower.prach_demod",
+            "ran.prach_config", "ran.numerology", "ops.prach",
+            "phy.upper.pdcch", "phy.upper.ssb")
     code = ("import sys\n"
-            "import srsran_project_23_5_tpu_torch.phy.pipeline\n"
-            "import srsran_project_23_5_tpu_torch.convert\n"
-            "import srsran_project_23_5_tpu_torch.utils.kernels\n"
-            "import srsran_project_23_5_tpu_torch.phy.upper.upper_phy\n"
-            "import srsran_project_23_5_tpu_torch.phy.upper.slot_programs\n"
-            "import srsran_project_23_5_tpu_torch.fapi.messages\n"
+            + "".join(f"import srsran_project_23_5_tpu_torch.{m}\n"
+                      for m in mods) +
             "bad = sorted(m for m in sys.modules if m == 'jax'\n"
             "             or m.startswith(('jax.', 'jaxlib'))\n"
             "             or m.split('.')[0] == 'srsran_project_23_5_tpu')\n"
@@ -213,13 +231,28 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("entry", ["SlotPipeline", "UpperPhy",
-                                   "make_payloads"])
+                                   "make_payloads", "harq_retx_batch",
+                                   "LowerPhy", "AsyncLowerPhy"])
 def test_entry_points_default_to_the_card(entry, monkeypatch):
     """Without a device argument the entry points run on the current CUDA
     device; where there is none they raise instead of falling back to the
     CPU.  device="cpu" still runs the plain versions."""
     from srsran_project_23_5_tpu_torch.models import gnb_mixed as tmixed
+    from srsran_project_23_5_tpu_torch.phy.lower import lower_phy as tlower
     from srsran_project_23_5_tpu_torch.phy.upper import upper_phy as tupper
+    tiny = tmixed.tiny_mixed()
+    lcfg = tlower.LowerPhyConfig(mu=1, nfft=256, nof_prb=12)
+
+    def harq(**kw):
+        pay = tmixed.make_payloads(tiny, np.random.default_rng(0), 1, "cpu")
+        gen = torch.Generator().manual_seed(0)
+        noise = (*tmixed.draw_noise(tiny, 1, gen),
+                 *tmixed.draw_noise(tiny, 1, gen))
+        out = tmixed.harq_retx_batch(pay, noise, tiny, 20.0, **kw)
+        assert all(bool(v["first_ok"][0] and v["combined_ok"][0])
+                   for v in out.values())
+        return out["u0"]["combined_ok"].device
+
     calls = {
         "SlotPipeline": lambda **kw: tpipeline.SlotPipeline(
             tpipeline.PipelineConfig(carrier=tflagship.tiny_carrier()),
@@ -229,6 +262,11 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
         "make_payloads": lambda **kw: tmixed.make_payloads(
             tmixed.tiny_mixed(), np.random.default_rng(0), 2,
             **kw)["tb_ul0"].device,
+        "harq_retx_batch": harq,
+        "LowerPhy": lambda **kw: tlower.LowerPhy(
+            lcfg, tlower.LoopbackRadio(), **kw).device,
+        "AsyncLowerPhy": lambda **kw: tlower.AsyncLowerPhy(
+            lcfg, lambda s: None, lambda s, g: None, **kw).device,
     }
     assert calls[entry](device="cpu") == torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
