@@ -84,7 +84,34 @@ Phases, one line each:
    and µs/slot; a format-0 long preamble (L=839, root 129, N_cs 13) at
    122.88 MHz (PRACH FFT 98,304, CP 12,672) whose window spans two slots,
    through ``PrachWindowAssembler``, detected with its delay; the same for
-   restricted set A (root 201, N_cs 26).
+   restricted set A (root 201, N_cs 26);
+16. scan — the 273-PRB mixed slot through ``SlotPipeline``'s scan mode
+   (K = 8 batches per dispatch, one captured CUDA graph) at B = 8 and
+   B = 64: first, on a pipeline whose kernel calls are tapped (a copy of
+   each call's tensors, captured with the graph), every launch of one
+   replay takes and gives, bit for bit, what the same launch of the eager
+   K-batch loop on the same seed takes and gives, and every eager launch
+   equals its plain version; at B = 64 the kernels' shapes there (BG1
+   Z=384 x1088 and x1024 and x448, Z=352 x512) are timed with their
+   bounds.  Then, on an untapped pipeline: capture time and peak device
+   memory; one replay against the eager K-batch loop on the same seed
+   (all_ok equal, sinr_sum within 1e-6 relative, bit-equality reported); a
+   replay with the static noise ×100 must fail; µs/slot over a window of
+   several dispatches and one ``fetch_accumulated``, every slot ok, the
+   launches per replay (4K encoder, 2K decoder, counted by the capture
+   and checked against the LDPC kernels the profiler sees the device run
+   in one replay); ``dispatch_latency``; one dispatch under torch.profiler
+   (busy share, device span);
+17. flagship-scan — the same for the flagship loopback at B = 8, K = 8
+   (K encoder and K decoder launches per replay), untimed;
+18. accumulate — ``submit_accumulated`` over 3 eager mixed batches against
+   the reduction of ``drain()`` of a pipeline with the same seed;
+19. ops — the ops the port gained with the scan mode (bit packing, host
+   CRC and encoder references, the table and π/2-BPSK mappers, LLR
+   quantisation and hard decisions, the per-codeblock rate matcher,
+   layer demapping and the one-layer codebook, MMSE 1×N and 2×2 ZF, the
+   OFDM rx window offset, ``pdsch_transmit(w=)``) once each on the card at
+   273 PRB against the same call on the CPU.
 
 Every timed shape prints the kernel's device time, its bound (the larger
 of bytes over 3.35 TB/s and operations over 67 TFLOP/s) and the share of
@@ -96,11 +123,13 @@ result line.  Any failure raises and exits non-zero.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
 import subprocess
 import time
+import types
 
 import numpy as np
 import torch
@@ -1269,6 +1298,445 @@ def phase_lower(dev, card: str, u: dict) -> dict:
     return {"launches": launches, "times": []}
 
 
+SCAN_K = 8                      # bench.py's K
+SCAN_SHAPES = ((8, 10), (64, 4))  # (B, dispatches of the sustained window)
+
+
+def _kernel_counts() -> dict:
+    return {"encoder": encoder_cuda.encode.launches,
+            "decoder": decoder_cuda.decode.launches}
+
+
+def _reset_counts() -> None:
+    encoder_cuda.encode.launches = 0
+    decoder_cuda.decode.launches = 0
+
+
+def _replay_busy(pipe, batch, seed: int) -> tuple[str, float]:
+    """One scan dispatch under torch.profiler: device busy share (kernel
+    time over the host wall of the dispatch and its fetch), device ops per
+    dispatch, the LDPC kernels the device ran in the replay (which must be
+    the launches the capture counted) and the device span of the dispatch
+    (CUDA events; the profiler lengthens it).  Returns (text, kernel time
+    per slot in µs)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        start.record()
+        pipe.submit_scan(batch, seed)
+        end.record()
+        ok, _, n = pipe.fetch_accumulated()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    _check(ok, "a slot failed in the profiled dispatch")
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    busy_us = sum(e.self_device_time_total for e in kern)
+    ran = {kind: sum(e.count for e in kern if tag in e.key)
+           for kind, tag in (("encoder", "ldpc_encode_kernel"),
+                             ("decoder", "ldpc_decode_kernel"))}
+    counted = dict(zip(("encoder", "decoder"), pipe.captured_launches))
+    _check(ran == counted, f"the profiler saw {ran} LDPC kernels in one "
+           f"replay, the capture counted {counted}")
+    span_us = start.elapsed_time(end) * 1e3
+    top = sorted(kern, key=lambda e: e.self_device_time_total, reverse=True)
+    seen = (f"device busy {busy_us:.0f} us ({100 * busy_us / wall_us:.1f}% "
+            f"of the {wall_us:.0f} us wall), "
+            f"{sum(e.count for e in kern)} device ops per dispatch; top: "
+            + "; ".join(f"{e.key[:48]} "
+                        f"{100 * e.self_device_time_total / busy_us:.1f}%"
+                        for e in top[:6])
+            if busy_us else "the profiler saw no kernel of the graph")
+    return (f"{seen}; LDPC kernels the device ran in the replay {ran}; "
+            f"device span {span_us:.0f} us "
+            f"({100 * span_us / wall_us:.1f}% of the wall, "
+            f"{span_us / n:.1f} us per slot)", busy_us / n)
+
+
+class _ModuleTap:
+    """Stands in for a kernel wrapper's module inside ``sch`` (the one
+    caller of both wrappers on the scan paths): its kernel function keeps a
+    copy of each call's tensors, in ``sink.graph`` while a CUDA graph is
+    being captured (the copies are captured too, so after each replay they
+    hold what that replay's kernel took and gave), else in ``sink.eager``.
+    Every other name is the module's own."""
+
+    def __init__(self, module, fn_name: str, sink) -> None:
+        self._module = module
+        fn = getattr(module, fn_name)
+
+        def call(x, *args, **kw):
+            out = fn(x, *args, **kw)
+            outs = out if isinstance(out, tuple) else (out,)
+            capturing = (torch.cuda.is_available()
+                         and torch.cuda.is_current_stream_capturing())
+            (sink.graph if capturing else sink.eager).append({
+                "fn": fn_name, "x": x.clone(), "args": args, "kw": kw,
+                "out": [o.clone() for o in outs]})
+            return out
+        setattr(self, fn_name, call)
+
+    def __getattr__(self, name: str):
+        return getattr(self._module, name)
+
+
+@contextlib.contextmanager
+def _tapped_kernels():
+    sink = types.SimpleNamespace(graph=[], eager=[])
+    saved = sch.encoder_cuda, sch.decoder_cuda
+    sch.encoder_cuda = _ModuleTap(encoder_cuda, "encode", sink)
+    sch.decoder_cuda = _ModuleTap(decoder_cuda, "decode", sink)
+    try:
+        yield sink
+    finally:
+        sch.encoder_cuda, sch.decoder_cuda = saved
+
+
+def _call_shape(rec: dict) -> str:
+    bg, zc = rec["args"][:2]
+    n_used = rec["kw"].get("nof_used_blocks")
+    graph = ("" if rec["fn"] == "encode" else
+             f" n_used {n_used}" if n_used else " full graph")
+    return f"BG{bg} Z={zc} x{rec['x'].shape[0]}{graph}"
+
+
+def _scan_kernels(card: str, label: str, pipe, batch,
+                  timed: bool) -> list[dict]:
+    """Both kernels inside a replay: on a pipeline whose kernel calls are
+    tapped, every launch of one replay takes and gives what the same launch
+    of the eager K-batch loop on the same seed takes and gives (LLRs and
+    messages, bits, ok flags and codewords), and every eager launch gives
+    what the plain version gives on its inputs.  timed: the kernel and its
+    plain version are also timed at each shape of the first batch."""
+    k = pipe.config.scan_batches
+    with _tapped_kernels() as sink:
+        pipe.warmup_scan(batch)
+        sink.eager.clear()
+        noise = pipe.scan_noise(77)
+        ok_r, sum_r = (t.clone() for t in pipe.replay_scan())
+        ok_e, sum_e = pipe.scan_step(batch, noise)
+        torch.cuda.synchronize()
+    graph, eager = sink.graph, sink.eager
+    n = sum(pipe.captured_launches)
+    _check(len(graph) == len(eager) == n, f"{label}: {len(graph)} kernel "
+           f"calls captured, {len(eager)} eager, {n} launches counted")
+    _check(bool(ok_r) and bool(ok_e) and torch.equal(sum_r, sum_e),
+           f"{label}: tapped replay (ok {bool(ok_r)}, sum {float(sum_r)!r}) "
+           f"!= eager (ok {bool(ok_e)}, sum {float(sum_e)!r})")
+    for i, (g, e) in enumerate(zip(graph, eager)):
+        what = f"{label}: launch {i} ({g['fn']} {_call_shape(g)})"
+        _check(g["fn"] == e["fn"] and g["args"] == e["args"]
+               and g["kw"] == e["kw"], f"{what}: the replay and the eager "
+               f"loop called the kernels in another order")
+        _check(torch.equal(g["x"], e["x"]), f"{what}: the replay's input "
+               f"differs from the eager loop's")
+        _check(all(torch.equal(a, b) for a, b in zip(g["out"], e["out"])),
+               f"{what}: the replay's output differs from the eager loop's")
+    plain = {"encode": encoder_cuda.encode_plain,
+             "decode": decoder_cuda.decode_plain}
+    for i, e in enumerate(eager):
+        want = plain[e["fn"]](e["x"], *e["args"], **e["kw"])
+        want = want if isinstance(want, tuple) else (want,)
+        _check(all(torch.equal(a, b) for a, b in zip(e["out"], want)),
+               f"{label}: launch {i} ({e['fn']} {_call_shape(e)}) != plain")
+    shapes = sorted({f"{e['fn']}r {_call_shape(e)}" for e in eager})
+    times = []
+    for e in eager[:n // k] if timed else []:
+        x, (bg, zc), kw = e["x"], e["args"][:2], e["kw"]
+        if e["fn"] == "decode":
+            times.append(_timed_decoder(f"{label}", x, bg, zc,
+                                        kw.get("nof_used_blocks")))
+            continue
+        times.append(_timed(
+            "encoder", f"{_call_shape(e)} ({label})",
+            lambda x=x, bg=bg, zc=zc: encoder_cuda.encode(x, bg, zc),
+            lambda x=x, bg=bg, zc=zc: encoder_cuda.encode_plain(x, bg, zc),
+            200, 3, encoder_bound(bg, zc, x.shape[0])))
+    print(f"[{label}] kernels inside one replay: all {n} launches took and "
+          f"gave, bit for bit, what the eager K-batch loop's took and gave "
+          f"on the same seed (sinr_sum {float(sum_r)!r} both); every eager "
+          f"launch bit-exact against its plain version; shapes: "
+          f"{', '.join(shapes)}"
+          + "".join(f"; {_fmt(r)}" + (f", {r['ctas_per_sm']} CTA/SM, "
+                                       f"{r['waves']} waves"
+                                       if "waves" in r else "")
+                    for r in times) + f" on {card}")
+    return times
+
+
+def _scan_run(dev, card: str, label: str, pipe, batch, per_batch: tuple,
+              dispatches: int, sinr_tol: float) -> dict:
+    """The scan mode of one pipeline on the card: warmup_scan (eager
+    warmup, capture), one replay against the eager K-batch loop on the
+    same seed, a replay with the static noise ×100, a sustained accumulate
+    window (counts reset just before and read just after), the dispatch
+    latency and the busy share of one dispatch."""
+    k, b = pipe.config.scan_batches, pipe.config.slots_per_batch
+    snr = pipe.config.snr_db if pipe.config.carrier else 20.0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    warm_s, ok0, mean0 = pipe.warmup_scan(batch)
+    # above what was allocated before: the eager warmup's peak, and what
+    # the static buffers and the graph's private pool keep reserved
+    peak_gib = (torch.cuda.max_memory_allocated() - base[0]) / 2 ** 30
+    held_gib = (torch.cuda.memory_reserved() - base[1]) / 2 ** 30
+    _check(ok0 and abs(mean0 - snr) < sinr_tol,
+           f"{label}: scan warmup ok {ok0}, mean SINR {mean0:.2f} dB")
+    per_replay = dict(zip(("encoder", "decoder"), pipe.captured_launches))
+    want = {"encoder": per_batch[0] * k, "decoder": per_batch[1] * k}
+    _check(per_replay == want, f"{label}: the graph captured {per_replay} "
+           f"launches, expected {want}")
+    # one replay against the eager K-batch loop on the same noise
+    noise = pipe.scan_noise(77)
+    ok_r, sum_r = (t.clone() for t in pipe.replay_scan())
+    ok_e, sum_e = pipe.scan_step(batch, noise)
+    torch.cuda.synchronize()
+    rel = abs(float(sum_r) - float(sum_e)) / abs(float(sum_e))
+    bit_equal = torch.equal(sum_r, sum_e)
+    _check(bool(ok_r) and bool(ok_e) and rel <= 1e-6,
+           f"{label}: replay (ok {bool(ok_r)}, sum {float(sum_r)!r}) != "
+           f"eager (ok {bool(ok_e)}, sum {float(sum_e)!r})")
+    # the graph reads the static noise buffer: ×100 noise fails the slots
+    for n in pipe.scan_noise(77):
+        n.mul_(100.0)
+    loud_ok = bool(pipe.replay_scan()[0])
+    _check(not loud_ok, f"{label}: a replay on ×100 noise still passed")
+    # sustained: several dispatches, one fetch
+    pipe.fetch_accumulated()
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(dispatches):
+        pipe.submit_scan(batch, 1000 + i * k)
+    all_ok, mean, nslots = pipe.fetch_accumulated()
+    wall = time.perf_counter() - t0
+    launches = _kernel_counts()
+    _check(all_ok and nslots == dispatches * k * b
+           and abs(mean - snr) < sinr_tol,
+           f"{label}: window ok {all_ok}, {nslots} slots, SINR {mean:.2f}")
+    _check(launches == {kd: dispatches * v for kd, v in want.items()},
+           f"{label}: window launches {launches}, expected {dispatches} x "
+           f"{want}")
+    lat = sorted(pipe.dispatch_latency(batch, 2000 + i) for i in range(5))
+    busy, kernel_us = _replay_busy(pipe, batch, 3000)
+    us_per_slot = wall / nslots * 1e6
+    print(f"[{label}] B={b} K={k} ({pipe.slots_per_dispatch} slots per "
+          f"dispatch): warmup_scan {warm_s:.2f} s, capture "
+          f"{pipe.capture_seconds:.2f} s, device memory (max_memory_"
+          f"allocated) {peak_gib:.2f} GiB over the baseline at its peak, "
+          f"{held_gib:.2f} GiB more reserved after; replay vs eager loop on one seed: all_ok equal, sinr_sum "
+          f"{'bit-equal' if bit_equal else f'within {rel:.1e} relative'} "
+          f"({float(sum_r)!r}); x100 noise replay all_ok {loud_ok}; "
+          f"sustained {dispatches} dispatches, one fetch: "
+          f"{us_per_slot:.1f} us/slot, all {nslots} slots ok, mean UL SINR "
+          f"{mean:.2f} dB, launches {launches} ({per_replay} per replay); "
+          f"dispatch latency (median of 5) {lat[2] * 1e3:.2f} ms; one "
+          f"dispatch profiled: {busy}; kernel time per slot over the "
+          f"sustained us/slot: {100 * kernel_us / us_per_slot:.1f}% on "
+          f"{card}")
+    return {"launches": launches, "times": []}
+
+
+def phase_scan(dev, card: str, cfg=None, shapes=SCAN_SHAPES,
+               k: int = SCAN_K) -> list[dict]:
+    """The mixed slot's scan mode (``warmup_scan``/``submit_scan``/
+    ``fetch_accumulated``, one CUDA graph per dispatch) at bench.py's B and
+    K."""
+    cfg = cfg or gnb_mixed.default_mixed()
+    label = f"scan {cfg.nof_prb}-PRB mixed"
+    runs = []
+    for b, dispatches in shapes:
+        def pipe():
+            return pipeline.SlotPipeline(
+                pipeline.PipelineConfig(carrier=None, slots_per_batch=b,
+                                        scan_batches=k),
+                device=dev, seed=9,
+                batch_fn=gnb_mixed.batch_fn_for_pipeline(cfg))
+        payloads = gnb_mixed.make_payloads(cfg, np.random.default_rng(9 + b),
+                                           b, dev)
+        # the kernels of a tapped replay; at B > 8 their shapes are new to
+        # this script, and are timed
+        times = _scan_kernels(card, f"{label} B={b}", pipe(), payloads,
+                              timed=b > SLICE_BATCH)
+        torch.cuda.empty_cache()
+        runs.append(_scan_run(dev, card, label, pipe(), payloads, (4, 2),
+                              dispatches, 1.0) | {"times": times})
+        del payloads
+        torch.cuda.empty_cache()
+    return runs
+
+
+def phase_flagship_scan(dev, card: str, cfg=None, b: int = SLICE_BATCH,
+                        k: int = SCAN_K) -> dict:
+    """The flagship loopback's scan mode, its noise from the pipeline's
+    own draw."""
+    cfg = cfg or gnb_flagship.default_carrier()
+    label = f"flagship-scan {cfg.nof_prb}-PRB"
+
+    def pipe():
+        return pipeline.SlotPipeline(pipeline.PipelineConfig(
+            carrier=cfg, slots_per_batch=b, scan_batches=k), device=dev,
+            seed=10)
+    tb = torch.randint(0, 2, (b, cfg.sh.tbs), device=dev, dtype=torch.int8,
+                       generator=torch.Generator(device=dev).manual_seed(10))
+    _scan_kernels(card, f"{label} B={b}", pipe(), tb, timed=False)
+    torch.cuda.empty_cache()
+    return _scan_run(dev, card, label, pipe(), tb, (1, 1), 10, 1.5)
+
+
+def phase_accumulate(dev, card: str, cfg=None, b: int = SLICE_BATCH) -> dict:
+    """Accumulate mode over eager submits against the reduction of
+    ``drain()`` of a pipeline with the same seed."""
+    cfg = cfg or gnb_mixed.default_mixed()
+    payloads = gnb_mixed.make_payloads(cfg, np.random.default_rng(11), b, dev)
+
+    def pipe():
+        return pipeline.SlotPipeline(
+            pipeline.PipelineConfig(carrier=None, slots_per_batch=b, depth=2),
+            device=dev, seed=11, batch_fn=gnb_mixed.batch_fn_for_pipeline(cfg))
+    ref = pipe()
+    for _ in range(3):
+        ref.submit(payloads)
+    res = ref.drain()
+    oks = np.concatenate([ok for ok, _ in res])
+    sinrs = np.concatenate([s for _, s in res]).astype(np.float64)
+    acc = pipe()
+    _reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        acc.submit_accumulated(payloads)
+    ok, mean, n = acc.fetch_accumulated()
+    wall = time.perf_counter() - t0
+    launches = _kernel_counts()
+    rel = abs(mean - sinrs.mean()) / abs(sinrs.mean())
+    _check(ok == bool(oks.all()) and ok and n == 3 * b and rel <= 1e-6,
+           f"accumulate ({ok}, {mean!r}, {n}) != drain ({bool(oks.all())}, "
+           f"{sinrs.mean()!r}, {oks.size})")
+    _check(launches == {"encoder": 12, "decoder": 6},
+           f"accumulate launches {launches}")
+    print(f"[accumulate] {cfg.nof_prb}-PRB mixed slot, 3 eager submits of "
+          f"{b}: fetch_accumulated ({ok}, {mean:.6f} dB, {n}) equals the "
+          f"drain() reduction ({bool(oks.all())}, {sinrs.mean():.6f} dB, "
+          f"{oks.size}) within {rel:.1e} relative; "
+          f"{wall / n * 1e6:.1f} us/slot, launches {launches} on {card}")
+    return {"launches": launches, "times": []}
+
+
+def phase_ops(dev, card: str, cfg=None) -> None:
+    """The ops of the JAX package that the port gained in this slice, once
+    each on the card at the mixed slot's sizes, against the same call on
+    the CPU (exact for bits, tables and hard decisions; floats within
+    1e-5 of max|CPU|, the OFDM window within 4e-5)."""
+    from srsran_project_23_5_tpu_torch.ops import (bits, crc, equalizer,
+                                                   modulation, precoding)
+    from srsran_project_23_5_tpu_torch.ops.ldpc import encoder, rate_match
+    cfg = cfg or gnb_mixed.default_mixed()
+    rng = np.random.default_rng(12)
+    worst = {}
+
+    def same(name: str, got, want, rel: float | None = None) -> None:
+        got = got.cpu() if isinstance(got, torch.Tensor) else got
+        if isinstance(want, np.ndarray):
+            want = torch.from_numpy(want)
+        if rel is None:
+            _check(torch.equal(got, want.to(got.dtype)),
+                   f"{name}: card != CPU")
+            worst[name] = 0.0
+            return
+        err = float((got - want).abs().max() / want.abs().max())
+        _check(err <= rel, f"{name}: card vs CPU {err:.2e} of max|CPU|")
+        worst[name] = err
+
+    def cplx(*shape):
+        return torch.from_numpy((rng.standard_normal(shape)
+                                 + 1j * rng.standard_normal(shape)
+                                 ).astype(np.complex64))
+
+    nsc, nre = cfg.nsc, cfg.nsc * 12
+    tb = torch.from_numpy(rng.integers(0, 2, (SLICE_BATCH, 8 * (
+        cfg.pdsch0.tbs // 8))).astype(np.int8))
+    packed = bits.pack_bits(tb.to(dev))
+    same("pack_bits", packed, bits.pack_bits_np(tb.numpy()))
+    same("unpack_bits", bits.unpack_bits(packed), tb)
+    same("crc (crc_np)", crc.crc(tb.to(dev), "crc24A"),
+         crc.crc_np(tb.numpy(), "crc24A"))
+    msg = rng.integers(0, 2, (4, 10 * 16)).astype(np.int8)
+    same("encoder kernel (encode_np)",
+         encoder_cuda.encode(torch.from_numpy(msg).to(dev), 2, 16),
+         encoder.encode_np(msg, 2, 16))
+    for qm in (1, 2, 4, 6, 8):
+        b = torch.from_numpy(rng.integers(0, 2, (2, nre * qm)).astype(np.int8))
+        same(f"modulate_lut qm {qm}", modulation.modulate_lut(b.to(dev), qm),
+             modulation.modulate_lut(b, qm), 1e-5)
+    b = torch.from_numpy(rng.integers(0, 2, (2, nre)).astype(np.int8))
+    same("modulate_pi2_bpsk", modulation.modulate_pi2_bpsk(b.to(dev)),
+         modulation.modulate_pi2_bpsk(b), 1e-5)
+    llr = torch.from_numpy((40 * rng.standard_normal((2, nre))
+                            ).astype(np.float32))
+    same("quantize_llr", modulation.quantize_llr(llr.to(dev), 0.5),
+         modulation.quantize_llr(llr, 0.5))
+    same("hard_decision", modulation.hard_decision(llr.to(dev)),
+         modulation.hard_decision(llr))
+    # the per-codeblock rate matcher at pusch0's first codeblock
+    sh = cfg.pusch0
+    seg, e = sh.segments, sh.cb_lengths[0]
+    key = (seg.base_graph, seg.lifting_size, sh.rv, seg.payload_length,
+           seg.segment_length, e, sh.qm)
+    cw = encoder_cuda.encode_plain(torch.from_numpy(rng.integers(
+        0, 2, (2, seg.segment_length)).astype(np.int8)), *key[:2])
+    bits_e = rate_match.match(cw, *key)
+    same("rate_match.match", rate_match.match(cw.to(dev), *key), bits_e)
+    same("interleave/deinterleave", rate_match.deinterleave(
+        rate_match.interleave(bits_e.to(dev), sh.qm), sh.qm), bits_e)
+    llr_e = torch.from_numpy(rng.standard_normal((2, e)).astype(np.float32))
+    full = rate_match.dematch(llr_e, *key)
+    same("rate_match.dematch", rate_match.dematch(llr_e.to(dev), *key), full,
+         1e-5)
+    same("combine_retransmission", rate_match.combine_retransmission(
+        full.to(dev), full.to(dev), seg.payload_length, seg.lifting_size),
+        rate_match.combine_retransmission(full, full, seg.payload_length,
+                                          seg.lifting_size), 1e-5)
+    lay = cplx(2, 2, nre // 2)
+    same("layer_demap", precoding.layer_demap(lay.to(dev)),
+         precoding.layer_demap(lay))
+    w1 = precoding.one_layer_codebook(2, 1)
+    same("apply_precoding (one_layer_codebook)",
+         precoding.apply_precoding(lay[:, :1].to(dev), w1),
+         precoding.apply_precoding(lay[:, :1], w1), 1e-5)
+    y, h1, h2 = cplx(2, 2, nre), cplx(2, 2, nre), cplx(2, 2, 2, nre)
+    for name, fn, h in (("mmse_1xn", equalizer.mmse_1xn, h1),
+                        ("zf_2x2", equalizer.zf_2x2, h2)):
+        got = fn(y.to(dev), h.to(dev), 0.05)
+        want = fn(y, h, 0.05)
+        for i, part in enumerate(("x_hat", "noise var")):
+            same(f"{name} {part}", got[i], want[i], 1e-5)
+    grid = cplx(2, 14, nsc)
+    bb = ofdm.modulate_slot(grid, cfg.mu, cfg.nfft)
+    for off in (0.25, 0.5):
+        same(f"demodulate_slot rx_window_offset {off}",
+             ofdm.demodulate_slot(bb.to(dev), nsc, cfg.mu, cfg.nfft,
+                                  rx_window_offset=off),
+             ofdm.demodulate_slot(bb, nsc, cfg.mu, cfg.nfft,
+                                  rx_window_offset=off), 4e-5)
+    q, _ = np.linalg.qr(rng.standard_normal((2, 2))
+                        + 1j * rng.standard_normal((2, 2)))
+    tb0 = torch.from_numpy(rng.integers(0, 2, (2, cfg.pdsch0.tbs)
+                                        ).astype(np.int8))
+    g0 = torch.zeros((2, 2, 14, nsc), dtype=torch.complex64)
+    same("pdsch_transmit(w=unitary 2x2)",
+         sch.pdsch_transmit(tb0.to(dev), cfg.pdsch0, g0.to(dev), w=q),
+         sch.pdsch_transmit(tb0, cfg.pdsch0, g0, w=q), 1e-5)
+    print(f"[ops] {len(worst)} ops at {cfg.nof_prb} PRB (nfft {cfg.nfft}), "
+          f"card vs CPU, worst error over max|CPU|: "
+          + ", ".join(f"{k} {v:.1e}" for k, v in worst.items())
+          + f" on {card}")
+
+
 def _kernel_entry(name: str, kind: str, paths: list[dict],
                   max_err: float) -> dict:
     """One kernels-JSON entry: launches of every driven path (each counted
@@ -1314,7 +1782,11 @@ def main() -> None:
     h = phase_harq(dev, card)
     phase_receivers(dev, card, u)
     lo = phase_lower(dev, card, u)
-    paths = [s, m, u, v, h, lo]
+    scans = phase_scan(dev, card)
+    fs = phase_flagship_scan(dev, card)
+    acc = phase_accumulate(dev, card)
+    phase_ops(dev, card)
+    paths = [s, m, u, v, h, lo, *scans, fs, acc]
     print(json.dumps({"kernels": [
         _kernel_entry("ldpc_encoder", "encoder", paths, enc_err),
         _kernel_entry("ldpc_decoder", "decoder", paths,

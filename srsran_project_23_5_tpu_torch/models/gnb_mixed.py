@@ -734,13 +734,29 @@ def harq_retx_batch(payloads: dict, noise: tuple[torch.Tensor, ...],
     return out
 
 
-def batch_fn_for_pipeline(cfg: MixedSlotConfig):
-    """The ``SlotPipeline`` batch contract: (payloads {name: [B, n]},
-    generator) → (ok [B], sinr_ul_db [B]), the channel noise drawn from the
-    pipeline's generator on its device."""
-    def fn(payloads: dict, generator: torch.Generator):
-        bsz = payloads["tb_ul0"].shape[0]
-        res = mixed_slot_batch(payloads, *draw_noise(cfg, bsz, generator),
-                               cfg)
+def mixed_slot_dict(payloads: dict, noise_dl: torch.Tensor,
+                    noise_ul: torch.Tensor, cfg: MixedSlotConfig) -> dict:
+    """``mixed_slot`` with its result as a dict of scalar tensors."""
+    return dict(vars(mixed_slot(payloads, noise_dl, noise_ul, cfg)))
+
+
+def _pipeline_fn(cfg: MixedSlotConfig, slot) -> tuple:
+    def run(payloads: dict, noise_dl: torch.Tensor, noise_ul: torch.Tensor):
+        res = slot(payloads, noise_dl, noise_ul, cfg)
         return res.ok, res.sinr_ul_db
-    return fn
+    return run, lambda batch, generator: draw_noise(cfg, batch, generator)
+
+
+def batch_fn_for_pipeline(cfg: MixedSlotConfig) -> tuple:
+    """The ``SlotPipeline`` batch contract, a (run, draw) pair: run
+    (payloads {name: [B, n]}, noise_dl, noise_ul [B, 2, slot_samples]) →
+    (ok [B], sinr_ul_db [B]); draw is ``draw_noise``."""
+    return _pipeline_fn(cfg, mixed_slot_batch)
+
+
+def slot_fn_for_pipeline(cfg: MixedSlotConfig) -> tuple:
+    """The ``SlotPipeline`` slot contract, a (run, draw) pair: run
+    (payloads {name: [n]}, noise_dl, noise_ul [2, slot_samples]) → (ok,
+    sinr_ul_db) scalars; the pipeline runs the B slots of a batch one
+    after another."""
+    return _pipeline_fn(cfg, mixed_slot)

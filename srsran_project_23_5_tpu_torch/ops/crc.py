@@ -58,6 +58,12 @@ def _remainder_matrix_on(name: str, msg_len: int,
         device=device, dtype=torch.float32)
 
 
+def crc_np(bits: np.ndarray, name: str) -> np.ndarray:
+    """Host CRC: [..., L] {0,1} → [..., degree] {0,1} int64 (MSB-first)."""
+    m = remainder_matrix(name, bits.shape[-1])
+    return (bits.astype(np.int64) @ m.astype(np.int64)) % 2
+
+
 def crc(bits: torch.Tensor, name: str) -> torch.Tensor:
     """[..., L] int8 {0,1} → [..., degree] int8 CRC bits."""
     msg_len = bits.shape[-1]

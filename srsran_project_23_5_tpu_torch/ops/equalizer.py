@@ -1,15 +1,26 @@
 """Zero-forcing equalisers with post-equalisation noise variance.
 
-Counterpart of ``zf_1xn``, ``zf_nx2`` and ``zf_nx4`` in
-``srsran_project_23_5_tpu/ops/equalizer.py``.
+Counterpart of ``srsran_project_23_5_tpu/ops/equalizer.py``: SIMO
+zero-forcing (MRC) and MMSE, 2×2 zero-forcing by explicit inverse, N×2 and
+N×4 zero-forcing.  A noise variance given as a Python number becomes a
+device-side fill, never a host-to-device copy.
 """
 from __future__ import annotations
 
 import torch
 
 
-def zf_1xn(y: torch.Tensor, h: torch.Tensor, noise_var: torch.Tensor
-           ) -> tuple[torch.Tensor, torch.Tensor]:
+def _noise_var(noise_var, like: torch.Tensor) -> torch.Tensor:
+    """noise_var as a float32 tensor on like's device, with a trailing RE
+    axis."""
+    if not isinstance(noise_var, torch.Tensor):
+        noise_var = torch.full((), float(noise_var), dtype=torch.float32,
+                               device=like.device)
+    return noise_var[..., None]
+
+
+def zf_1xn(y: torch.Tensor, h: torch.Tensor, noise_var: torch.Tensor,
+           tx_scaling: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
     """SIMO zero-forcing (= MRC) equaliser.
 
     y, h: [..., nrx, n_re] complex; noise_var: [...] or broadcastable.
@@ -17,10 +28,25 @@ def zf_1xn(y: torch.Tensor, h: torch.Tensor, noise_var: torch.Tensor
     """
     num = (torch.conj(h) * y).sum(dim=-2)
     den = torch.clamp((h.abs() ** 2).sum(dim=-2), min=1e-12)
-    x_hat = num / den
-    nv = torch.as_tensor(noise_var, device=y.device)[..., None]
-    post_nv = nv.expand(x_hat.shape) / den
-    return x_hat, post_nv
+    nv = _noise_var(noise_var, y).expand(num.shape)
+    return num / (den * tx_scaling), nv / (den * tx_scaling ** 2)
+
+
+def mmse_1xn(y: torch.Tensor, h: torch.Tensor, noise_var: torch.Tensor,
+             tx_scaling: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """SIMO MMSE equaliser (regularised by the noise variance), rescaled so
+    that the estimate is conditionally unbiased.
+
+    y, h: [..., nrx, n_re] complex; noise_var: [...] or broadcastable.
+    Returns (x_hat [..., n_re], post_noise_var [..., n_re]).
+    """
+    nv = _noise_var(noise_var, y)
+    num = (torch.conj(h) * y).sum(dim=-2)
+    gain = (h.abs() ** 2).sum(dim=-2)
+    den = gain + nv / (tx_scaling ** 2)
+    x_hat = num / (den * tx_scaling)
+    post_nv = nv / torch.clamp(gain * tx_scaling ** 2, min=1e-12)
+    return x_hat / torch.clamp(gain / den, min=1e-6), post_nv
 
 
 def zf_nx2(y: torch.Tensor, h: torch.Tensor, noise_var: torch.Tensor
@@ -41,9 +67,30 @@ def zf_nx2(y: torch.Tensor, h: torch.Tensor, noise_var: torch.Tensor
     det = torch.clamp(a00 * a11 - a01.abs() ** 2, min=1e-12)
     x0 = (a11 * b0 - a01 * b1) / det
     x1 = (a00 * b1 - torch.conj(a01) * b0) / det
-    nv = torch.as_tensor(noise_var, device=y.device)[..., None]
+    nv = _noise_var(noise_var, y)
     return (torch.stack([x0, x1], dim=-2),
             torch.stack([nv * a11 / det, nv * a00 / det], dim=-2))
+
+
+def zf_2x2(y: torch.Tensor, h: torch.Tensor, noise_var: torch.Tensor
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """2×2 MIMO zero-forcing by the explicit inverse of H per RE.
+
+    y: [..., 2, n_re]; h: [..., 2 rx, 2 tx, n_re]; noise_var broadcastable
+    to [...].  Returns (x_hat [..., 2, n_re], post_noise_var [..., 2, n_re]).
+    """
+    h00, h01 = h[..., 0, 0, :], h[..., 0, 1, :]
+    h10, h11 = h[..., 1, 0, :], h[..., 1, 1, :]
+    det = h00 * h11 - h01 * h10
+    det = torch.where(det.abs() < 1e-12, torch.full_like(det, 1e-12), det)
+    y0, y1 = y[..., 0, :], y[..., 1, :]
+    x0 = (h11 * y0 - h01 * y1) / det
+    x1 = (-h10 * y0 + h00 * y1) / det
+    inv_det2 = 1.0 / det.abs() ** 2
+    nv = _noise_var(noise_var, y)
+    nv0 = nv * (h11.abs() ** 2 + h01.abs() ** 2) * inv_det2
+    nv1 = nv * (h10.abs() ** 2 + h00.abs() ** 2) * inv_det2
+    return torch.stack([x0, x1], dim=-2), torch.stack([nv0, nv1], dim=-2)
 
 
 def zf_nx4(y: torch.Tensor, h: torch.Tensor, noise_var: torch.Tensor
@@ -94,6 +141,6 @@ def zf_nx4(y: torch.Tensor, h: torch.Tensor, noise_var: torch.Tensor
                 + 2.0 * (t00 * j01 * torch.conj(t01)).real)
     d1 = i11 + (t10.abs() ** 2 * j00 + t11.abs() ** 2 * j11
                 + 2.0 * (t10 * j01 * torch.conj(t11)).real)
-    nv = torch.as_tensor(noise_var, device=y.device)[..., None]
+    nv = _noise_var(noise_var, y)
     return (torch.stack([x0, x1, x2, x3], dim=-2),
             torch.stack([nv * d0, nv * d1, nv * j00, nv * j11], dim=-2))

@@ -9,12 +9,16 @@ rolls and XORs over [batch, Zc] blocks (P^s x = roll(x, -s)):
 2. the XOR of the 4 core rows leaves P^s p0 = Λ → p0 = roll(Λ, s);
 3. forward substitution along the double diagonal gives p1, p2, p3;
 4. each extension row's parity is the XOR of its message and core terms.
+
+``encode_np`` is an independent host reference for the tests: it solves
+H·[msg; p] = 0 over GF(2) by Gaussian elimination on the dense lifted H.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from .graphs import LiftedGraph, lifted_graph
+from .graphs import LiftedGraph, lifted_graph, parity_check_dense
 
 
 def _pshift(x: torch.Tensor, s: int) -> torch.Tensor:
@@ -67,3 +71,36 @@ def encode(msg_bits: torch.Tensor, base_graph: int,
     for r in range(4, m):
         blocks.append(row_lam(r, k + 4))
     return torch.stack(blocks, dim=1).reshape(b, graph.nof_var_blocks * z)
+
+
+def encode_np(msg_bits: np.ndarray, base_graph: int,
+              lifting_size: int) -> np.ndarray:
+    """Host reference encode: [batch, K_b*Zc] {0,1} → full codeword
+    [batch, N_full*Zc] uint8, by Gaussian elimination over GF(2) on the
+    parity part of the dense lifted H (tests only)."""
+    graph = lifted_graph(base_graph, lifting_size)
+    h = parity_check_dense(graph)
+    k = graph.nof_msg_blocks * lifting_size
+    m = h.shape[1] - k
+    hp = h[:, k:].astype(np.uint8).copy()
+    rhs = (h[:, :k] @ msg_bits.T.astype(np.uint8)) % 2          # [m, batch]
+    piv_cols = []
+    row = 0
+    for col in range(m):
+        hits = np.flatnonzero(hp[row:, col])
+        if hits.size == 0:
+            continue
+        piv = row + int(hits[0])
+        hp[[row, piv]] = hp[[piv, row]]
+        rhs[[row, piv]] = rhs[[piv, row]]
+        others = np.flatnonzero(hp[:, col])
+        others = others[others != row]
+        hp[others] ^= hp[row]
+        rhs[others] ^= rhs[row]
+        piv_cols.append(col)
+        row += 1
+    if row != m:
+        raise ValueError("the parity part of H is not full rank")
+    p = np.zeros((m, msg_bits.shape[0]), dtype=np.uint8)
+    p[piv_cols] = rhs[:len(piv_cols)]
+    return np.concatenate([msg_bits.astype(np.uint8), p.T], axis=1)

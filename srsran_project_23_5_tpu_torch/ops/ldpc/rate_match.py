@@ -2,9 +2,10 @@
 
 Counterpart of ``srsran_project_23_5_tpu/ops/ldpc/rate_match.py``.  The index
 maps (``selection_indices``, ``inverse_selection_maps``, ``tb_maps``) are the
-JAX package's numpy code re-hosted as it is; they fuse the per-codeblock
-circular-buffer bit selection and the bit interleaver into whole-TB tables,
-so matching is one gather and dematching one gather per buffer wrap.
+JAX package's numpy code re-hosted as it is; ``tb_maps`` fuses the
+per-codeblock circular-buffer bit selection and the bit interleaver into
+whole-TB tables, so matching is one gather and dematching one gather per
+buffer wrap.  ``match``/``dematch`` do the same for one codeblock.
 
 Buffer convention: the circular buffer is the full codeword minus its first
 2*Zc punctured systematic columns.  Filler positions are skipped on
@@ -153,8 +154,70 @@ def dematch_tb(llr: torch.Tensor, base_graph: int, lifting_size: int,
     buf = llr_pad[:, invs[0]]
     for inv in invs[1:]:
         buf = buf + llr_pad[:, inv]
-    buf = buf.reshape(bsz, c, nbuf)
-    buf = torch.where(filler, torch.tensor(float(LLR_INFTY), dtype=llr.dtype,
-                                           device=llr.device), buf)
+    buf = buf.reshape(bsz, c, nbuf).masked_fill(filler, float(LLR_INFTY))
     punct = llr.new_zeros((bsz, c, 2 * z))
     return torch.cat([punct, buf], dim=-1)
+
+
+def interleave(bits: torch.Tensor, qm: int) -> torch.Tensor:
+    """Bit interleaver (TS 38.212 §5.4.2.2): [..., E] → [..., E]."""
+    *lead, e = bits.shape
+    return bits.reshape(*lead, qm, e // qm).transpose(-1, -2).reshape(*lead,
+                                                                      e)
+
+
+def deinterleave(bits: torch.Tensor, qm: int) -> torch.Tensor:
+    *lead, e = bits.shape
+    return bits.reshape(*lead, e // qm, qm).transpose(-1, -2).reshape(*lead,
+                                                                      e)
+
+
+@functools.lru_cache(maxsize=256)
+def _cb_maps_on(device: torch.device, *key):
+    """One codeblock's selection indices and inverse maps on `device`."""
+    *sel_key, e = key
+    idx = selection_indices(*sel_key, e)
+    invs = inverse_selection_maps(*sel_key, e)
+    return (torch.from_numpy(idx.astype(np.int64)).to(device),
+            tuple(torch.from_numpy(i.astype(np.int64)).to(device)
+                  for i in invs))
+
+
+def match(codeword: torch.Tensor, base_graph: int, lifting_size: int,
+          rv: int, payload_length: int, segment_length: int, e: int,
+          qm: int) -> torch.Tensor:
+    """One codeblock's full codeword [..., N_full*Zc] {0,1} → rate-matched
+    bits [..., E]: bit selection from the circular buffer, then the bit
+    interleaver."""
+    idx, _ = _cb_maps_on(codeword.device, base_graph, lifting_size, rv,
+                         payload_length, segment_length, e)
+    return interleave(codeword[..., 2 * lifting_size:][..., idx], qm)
+
+
+def dematch(llr: torch.Tensor, base_graph: int, lifting_size: int, rv: int,
+            payload_length: int, segment_length: int, e: int, qm: int,
+            llr_infty: float = float(LLR_INFTY)) -> torch.Tensor:
+    """One codeblock's rate-matched LLRs [..., E] → full-codeword LLRs
+    [..., N_full*Zc]: repeated transmissions of a buffer bit soft-combine,
+    the punctured systematic LLRs are 0 and the fillers +llr_infty."""
+    z = lifting_size
+    _, invs = _cb_maps_on(llr.device, base_graph, lifting_size, rv,
+                          payload_length, segment_length, e)
+    de = deinterleave(llr, qm)
+    de_pad = torch.cat([de, de.new_zeros((*de.shape[:-1], 1))], dim=-1)
+    buf = de_pad[..., invs[0]]
+    for inv in invs[1:]:
+        buf = buf + de_pad[..., inv]
+    pos = torch.arange(buf.shape[-1], device=llr.device)
+    filler = (pos >= payload_length - 2 * z) & (pos < segment_length - 2 * z)
+    buf = buf.masked_fill(filler, llr_infty)
+    return torch.cat([de.new_zeros((*de.shape[:-1], 2 * z)), buf], dim=-1)
+
+
+def combine_retransmission(acc_llr: torch.Tensor, new_llr: torch.Tensor,
+                           payload_length: int, lifting_size: int,
+                           llr_infty: float = float(LLR_INFTY)
+                           ) -> torch.Tensor:
+    """HARQ soft combining of two full-codeword LLR tensors, saturating at
+    the filler sentinel so that known bits stay known."""
+    return torch.clamp(acc_llr + new_llr, -llr_infty, llr_infty)

@@ -1,9 +1,10 @@
 """Constellation mapping and max-log soft demapping (TS 38.211 §5.1).
 
 Counterpart of ``srsran_project_23_5_tpu/ops/modulation.py`` for BPSK
-(mapping only), QPSK, 16QAM, 64QAM and 256QAM.  NR QAM is Gray-labelled square QAM with independent
-I/Q axes, so each axis maps and demaps as PAM.  LLRs follow ln(P(0)/P(1))
-(positive ⇒ bit 0).
+and π/2-BPSK (mapping only), QPSK, 16QAM, 64QAM and 256QAM.  NR QAM is
+Gray-labelled square QAM with independent I/Q axes, so each axis maps and
+demaps as PAM; ``modulate_lut`` is the constellation-table mapper.  LLRs
+follow ln(P(0)/P(1)) (positive ⇒ bit 0).
 """
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ import functools
 
 import numpy as np
 import torch
+
+from ..ran.constants import LLR_MAX
 
 _NORM = {2: np.sqrt(2.0), 4: np.sqrt(10.0), 6: np.sqrt(42.0),
          8: np.sqrt(170.0)}
@@ -27,6 +30,21 @@ def _pam_level(bits: np.ndarray) -> float:
         return 1.0 - 2.0 * bits[0]
     inner = _pam_level(bits[1:])
     return (1.0 - 2.0 * bits[0]) * (2 ** (len(bits) - 1) - inner)
+
+
+@functools.lru_cache(maxsize=None)
+def constellation(qm: int) -> np.ndarray:
+    """Complex table of size 2^qm indexed by the MSB-first packed bit
+    label (qm = 1: BPSK, (1-2b)(1+j)/√2)."""
+    if qm == 1:
+        return np.array([1 + 1j, -1 - 1j], dtype=np.complex64) / np.sqrt(2)
+    _check_qm(qm)
+    points = np.empty(1 << qm, dtype=np.complex64)
+    for label in range(1 << qm):
+        bits = np.array([(label >> (qm - 1 - k)) & 1 for k in range(qm)])
+        points[label] = (_pam_level(bits[0::2])
+                         + 1j * _pam_level(bits[1::2])) / _NORM[qm]
+    return points
 
 
 @functools.lru_cache(maxsize=None)
@@ -70,12 +88,49 @@ def modulate(bits: torch.Tensor, qm: int) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
+def _constellation_on(qm: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(constellation(qm).astype(np.complex64)).to(device)
+
+
+def modulate_lut(bits: torch.Tensor, qm: int) -> torch.Tensor:
+    """Table mapper: [..., E] {0,1} → [..., E/qm] complex64, one gather of
+    the MSB-first bit label from ``constellation(qm)``."""
+    *lead, e = bits.shape
+    if e % qm:
+        raise ValueError(f"{e} bits do not fill {qm}-bit symbols")
+    weights = 1 << torch.arange(qm - 1, -1, -1, device=bits.device)
+    labels = (bits.reshape(*lead, e // qm, qm).to(torch.int64)
+              * weights).sum(dim=-1)
+    return _constellation_on(qm, bits.device)[labels]
+
+
+def modulate_pi2_bpsk(bits: torch.Tensor) -> torch.Tensor:
+    """π/2-BPSK (TS 38.211 §5.1.1): [..., E] {0,1} → [..., E] complex64,
+    the BPSK point rotated by j on odd symbol indices."""
+    s = (1.0 - 2.0 * bits.to(torch.float32)) / float(np.sqrt(2.0))
+    odd = torch.arange(bits.shape[-1], device=bits.device) % 2 == 1
+    return torch.complex(torch.where(odd, -s, s), s)
+
+
+def quantize_llr(llr: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+    """Float LLRs → the saturating int8 domain (±LLR_MAX)."""
+    return torch.clamp(torch.round(llr * scale), -LLR_MAX, LLR_MAX).to(
+        torch.int8)
+
+
+def hard_decision(llr: torch.Tensor) -> torch.Tensor:
+    """Int8 or float LLRs → hard bits {0,1} int8 (llr <= 0 ⇒ 1)."""
+    return (llr <= 0).to(torch.int8)
+
+
+@functools.lru_cache(maxsize=None)
 def _demap_tables(qm: int, device: torch.device):
     nb = qm // 2
     labels = np.arange(1 << nb)
     bit_of = np.stack([(labels >> (nb - 1 - k)) & 1 for k in range(nb)])
     return (torch.from_numpy(pam_levels(qm)).to(device),
-            torch.from_numpy(bit_of == 1).to(device))
+            torch.from_numpy(bit_of == 1).to(device),
+            torch.from_numpy(bit_of == 0).to(device))
 
 
 def demodulate_soft(symbols: torch.Tensor, noise_var: torch.Tensor,
@@ -94,15 +149,14 @@ def demodulate_soft(symbols: torch.Tensor, noise_var: torch.Tensor,
         return llr.reshape(*lead, -1)
 
     nb = qm // 2
-    levels, is_one = _demap_tables(qm, symbols.device)
-    big = torch.tensor(1e30, dtype=torch.float32, device=symbols.device)
+    levels, is_one, is_zero = _demap_tables(qm, symbols.device)
 
     def axis_llr(y: torch.Tensor) -> torch.Tensor:
         d2 = (y[..., None] - levels) ** 2                      # [..., S, 2^nb]
         outs = []
         for k in range(nb):
-            d2_1 = torch.where(is_one[k], d2, big).amin(dim=-1)
-            d2_0 = torch.where(is_one[k], big, d2).amin(dim=-1)
+            d2_1 = d2.masked_fill(is_zero[k], 1e30).amin(dim=-1)
+            d2_0 = d2.masked_fill(is_one[k], 1e30).amin(dim=-1)
             outs.append(d2_1 - d2_0)
         return torch.stack(outs, dim=-1)                       # [..., S, nb]
 

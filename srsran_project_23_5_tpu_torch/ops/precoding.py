@@ -5,6 +5,8 @@ is a reshape and a transpose; precoding is one complex product.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -19,6 +21,12 @@ def layer_map(symbols: torch.Tensor, nof_layers: int) -> torch.Tensor:
                            nof_layers).transpose(-1, -2)
 
 
+def layer_demap(layers: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``layer_map``: layers [..., L, M/L] → symbols [..., M]."""
+    *lead, v, mdiv = layers.shape
+    return layers.transpose(-1, -2).reshape(*lead, v * mdiv)
+
+
 def layer_demap_llr(llr_layers: torch.Tensor, qm: int) -> torch.Tensor:
     """Per-layer LLRs [..., L, M_l·qm] → codeword LLRs [..., L·M_l·qm]:
     codeword bit (L·i + l)·qm + q is layer bit (l, i·qm + q)."""
@@ -27,9 +35,18 @@ def layer_demap_llr(llr_layers: torch.Tensor, qm: int) -> torch.Tensor:
     return x.reshape(*lead, v * mq)
 
 
+@functools.lru_cache(maxsize=64)
+def _precoder_on(data: bytes, shape: tuple[int, int],
+                 device: torch.device) -> torch.Tensor:
+    """A precoding matrix (complex64 bytes) on `device`, copied once."""
+    return torch.from_numpy(np.frombuffer(data, np.complex64).reshape(
+        shape).copy()).to(device)
+
+
 def apply_precoding(layers: torch.Tensor, w: np.ndarray) -> torch.Tensor:
     """[..., L, n_re] layers × w [P, L] → [..., P, n_re] ports."""
-    w_t = torch.from_numpy(np.asarray(w, np.complex64)).to(layers.device)
+    w = np.ascontiguousarray(w, np.complex64)
+    w_t = _precoder_on(w.tobytes(), w.shape, layers.device)
     if layers.shape[-2] != w_t.shape[1]:
         raise ValueError(f"{layers.shape[-2]} layers for a precoder of "
                          f"{w_t.shape[1]}")
@@ -41,3 +58,17 @@ def identity_precoder(nof_ports: int, nof_layers: int) -> np.ndarray:
     for l in range(nof_layers):
         w[l % nof_ports, l] = 1.0
     return w
+
+
+def one_layer_codebook(nof_ports: int, pmi: int) -> np.ndarray:
+    """Single-layer type-I codebook column [P, 1] (TS 38.214 Table
+    5.2.2.2.1-5 for two ports; a DFT beam for more)."""
+    if nof_ports == 1:
+        return np.ones((1, 1), dtype=np.complex64)
+    if nof_ports == 2:
+        phase = [1, 1j, -1, -1j][pmi % 4]
+        return (np.array([[1.0], [phase]], dtype=np.complex64)
+                / np.sqrt(2.0))
+    n = np.arange(nof_ports)
+    return (np.exp(2j * np.pi * pmi * n / nof_ports)[:, None]
+            / np.sqrt(nof_ports)).astype(np.complex64)

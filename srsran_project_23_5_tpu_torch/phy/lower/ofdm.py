@@ -64,6 +64,22 @@ def _slot_tables(mu: int, nfft: int, slot_in_subframe: int,
             torch.from_numpy(rx.astype(np.int64)).to(device))
 
 
+@functools.lru_cache(maxsize=64)
+def _rx_window_tables(mu: int, nfft: int, slot_in_subframe: int,
+                      offset: float, device: torch.device):
+    """(symbol-body gather [14, nfft] advanced by a_l = int(offset·CP_l)
+    samples into each cyclic prefix, the per-(symbol, bin) phasor
+    e^{j2πk·a_l/N} [14, nfft] that undoes the advance)."""
+    cps = numerology.cp_lengths(mu, nfft, slot_in_subframe)
+    adv = np.asarray([int(offset * int(c)) for c in cps], np.int64)
+    starts = _symbol_starts(mu, nfft, slot_in_subframe)
+    k = np.arange(nfft)
+    rx = (starts + cps - adv)[:, None] + k[None, :]
+    win = np.exp(2j * np.pi * adv[:, None] * k[None, :] / nfft)
+    return (torch.from_numpy(rx.astype(np.int64)).to(device),
+            torch.from_numpy(win.astype(np.complex64)).to(device))
+
+
 def modulate_slot(grid: torch.Tensor, mu: int, nfft: int,
                   slot_in_subframe: int = 0,
                   center_freq_hz: float = 0.0) -> torch.Tensor:
@@ -83,10 +99,24 @@ def modulate_slot(grid: torch.Tensor, mu: int, nfft: int,
 
 def demodulate_slot(samples: torch.Tensor, nsc: int, mu: int, nfft: int,
                     slot_in_subframe: int = 0,
-                    center_freq_hz: float = 0.0) -> torch.Tensor:
-    """Inverse of modulate_slot: [..., slot_samples] → [..., 14, nsc]."""
+                    center_freq_hz: float = 0.0,
+                    rx_window_offset: float = 0.0) -> torch.Tensor:
+    """Inverse of modulate_slot: [..., slot_samples] → [..., 14, nsc].
+
+    rx_window_offset ∈ [0, 1): the fraction of each symbol's cyclic prefix
+    by which the window is advanced into the CP.  The advanced body is a
+    circular shift of the symbol, so each bin k picks up e^{−j2πk·a_l/N};
+    a per-(symbol, bin) phasor undoes it exactly, and channel taps up to
+    (1 − offset)·CP stay inside the shifted window.
+    """
     comp, _, rx_idx = _slot_tables(mu, nfft, slot_in_subframe,
                                    float(center_freq_hz), samples.device)
+    if rx_window_offset:
+        rx_idx, win = _rx_window_tables(mu, nfft, slot_in_subframe,
+                                        float(rx_window_offset),
+                                        samples.device)
     time = samples[..., rx_idx] * torch.conj(comp)[:, None]
     bins = torch.fft.fft(time, dim=-1) / nfft
+    if rx_window_offset:
+        bins = bins * win
     return _bins_to_grid(bins, nsc)

@@ -341,13 +341,15 @@ def map_res(syms: torch.Tensor, cfg: ShConfig, grid: torch.Tensor,
 
 def _scramble_modulate_map(codeword: torch.Tensor, cfg: ShConfig,
                            grid: torch.Tensor,
-                           pilots: torch.Tensor | None = None
-                           ) -> torch.Tensor:
+                           pilots: torch.Tensor | None = None,
+                           w: np.ndarray | None = None) -> torch.Tensor:
     """Scramble, modulate and map [B, G] codeword bits.  One layer maps onto
     a [B, 14, nsc] grid; several layers onto a [B, port, 14, nsc] grid:
     layer map, per-layer RE mapping with the OCC'd DM-RS on the layer's CDM
-    group comb, then the layer planes are added onto the ports (directly
-    when the ports are the layers, else through the identity precoder).
+    group comb, then the layer planes are precoded onto the ports by w
+    [port, layer] (without w: added directly when the ports are the layers,
+    else through the identity precoder).  A single layer is mapped as it
+    is, w or not, as in the JAX function.
     pilots: the port-0 DM-RS [ndmrs, w/2] (default the config's own)."""
     seq, _ = _scramble_seq(cfg.scrambling_cinit, cfg.nof_bits, grid.device)
     syms = modulation.modulate(codeword ^ seq, cfg.qm)            # [B, n_re]
@@ -365,21 +367,25 @@ def _scramble_modulate_map(codeword: torch.Tensor, cfg: ShConfig,
         [map_res(lay[:, l], cfg, zeros, pilots * _occ_on(cfg, l, grid.device),
                  pilot_comb=_dmrs_comb(l))
          for l in range(cfg.nof_layers)], dim=1)           # [B, L, 14, nsc]
-    if nports == cfg.nof_layers:
+    if w is None and nports == cfg.nof_layers:
         return grid + layer_grids
-    w = precoding.identity_precoder(nports, cfg.nof_layers)
+    if w is None:
+        w = precoding.identity_precoder(nports, cfg.nof_layers)
     return grid + precoding.apply_precoding(
         layer_grids.reshape(bsz, cfg.nof_layers, -1), w).reshape(grid.shape)
 
 
 def pdsch_transmit(tb_bits: torch.Tensor, cfg: ShConfig,
                    grid: torch.Tensor,
-                   pilots: torch.Tensor | None = None) -> torch.Tensor:
+                   pilots: torch.Tensor | None = None,
+                   w: np.ndarray | None = None) -> torch.Tensor:
     """Process [B, A] transport blocks onto [B, 14, nsc] grids (one layer)
     or [B, port, 14, nsc] grids.  pilots: the DM-RS of the slot
-    ([ndmrs, 6·nof_prb], ``dmrs.pilot_values``), default the config's own."""
+    ([ndmrs, 6·nof_prb], ``dmrs.pilot_values``), default the config's own.
+    w: a [port, layer] precoding matrix for several layers (default the
+    identity layer→port mapping)."""
     return _scramble_modulate_map(_encode_sch(tb_bits, cfg), cfg, grid,
-                                  pilots)
+                                  pilots, w)
 
 
 def pusch_transmit(tb_bits: torch.Tensor, cfg: ShConfig, grid: torch.Tensor,

@@ -307,6 +307,92 @@ def test_mixed_slot_pipeline_on_card(cuda):
     assert len(results) == 3 and all(ok.all() for ok, _ in results)
 
 
+def _replay_vs_eager(pipe, batch, seed: int):
+    """One replay of the captured K-batch graph and the eager K-batch loop
+    on the same noise: ((ok, sum) replayed, (ok, sum) eager)."""
+    noise = pipe.scan_noise(seed)
+    ok_r, sum_r = (t.clone() for t in pipe.replay_scan())
+    ok_e, sum_e = pipe.scan_step(batch, noise)
+    torch.cuda.synchronize()
+    return (bool(ok_r), float(sum_r)), (bool(ok_e), float(sum_e))
+
+
+@pytest.mark.cuda
+def test_mixed_scan_replay_equals_eager(cuda):
+    """The mixed slot's scan step captured as one CUDA graph: a replay
+    equals the eager K-batch loop on the same noise (the same kernels on
+    the same buffers), each replay counts the launches it captured, and a
+    replay on ×100 noise fails (the graph reads the static noise)."""
+    cfg = gnb_mixed.tiny_mixed()
+    b, k = 2, 2
+    pipe = pipeline.SlotPipeline(
+        pipeline.PipelineConfig(carrier=None, slots_per_batch=b,
+                                scan_batches=k),
+        device="cuda", seed=0, batch_fn=gnb_mixed.batch_fn_for_pipeline(cfg))
+    pay = gnb_mixed.make_payloads(cfg, np.random.default_rng(31), b, "cuda")
+    _, ok, mean = pipe.warmup_scan(pay)
+    assert ok and abs(mean - 20.0) < 1.0
+    assert pipe.captured_launches == (4 * k, 2 * k)
+    replay, eager = _replay_vs_eager(pipe, pay, 5)
+    assert replay[0] and replay[0] == eager[0]
+    assert abs(replay[1] - eager[1]) <= 1e-6 * abs(eager[1])
+    enc0, dec0 = encoder_cuda.encode.launches, decoder_cuda.decode.launches
+    for seed in (7, 9):
+        pipe.submit_scan(pay, seed)
+    all_ok, mean, n = pipe.fetch_accumulated()
+    assert all_ok and n == 2 * k * b and abs(mean - 20.0) < 1.0
+    assert encoder_cuda.encode.launches == enc0 + 2 * 4 * k
+    assert decoder_cuda.decode.launches == dec0 + 2 * 2 * k
+    for n in pipe.scan_noise(5):
+        n.mul_(100.0)
+    assert not bool(pipe.replay_scan()[0])
+
+
+@pytest.mark.cuda
+def test_flagship_scan_capture(cuda):
+    """The default loopback in scan mode on the card: capture, replay equal
+    to eager, accumulate over two dispatches."""
+    cfg = gnb_flagship.tiny_carrier()
+    b, k = 4, 3
+    pipe = pipeline.SlotPipeline(pipeline.PipelineConfig(
+        carrier=cfg, slots_per_batch=b, scan_batches=k), device="cuda",
+        seed=1)
+    tb = torch.randint(0, 2, (b, cfg.sh.tbs), device="cuda",
+                       dtype=torch.int8)
+    _, ok, mean = pipe.warmup_scan(tb)
+    assert ok and abs(mean - 20.0) < 1.5
+    assert pipe.captured_launches == (k, k)
+    replay, eager = _replay_vs_eager(pipe, tb, 3)
+    assert replay[0] and replay[0] == eager[0]
+    assert abs(replay[1] - eager[1]) <= 1e-6 * abs(eager[1])
+    for seed in (4, 5):
+        pipe.submit_scan(tb, seed)
+    all_ok, _, n = pipe.fetch_accumulated()
+    assert all_ok and n == 2 * k * b
+    assert pipe.dispatch_latency(tb, 6) > 0.0
+
+
+@pytest.mark.cuda
+def test_accumulate_on_card_equals_drain(cuda):
+    cfg = gnb_mixed.tiny_mixed()
+    pay = gnb_mixed.make_payloads(cfg, np.random.default_rng(32), 2, "cuda")
+
+    def pipe():
+        return pipeline.SlotPipeline(
+            pipeline.PipelineConfig(carrier=None, slots_per_batch=2),
+            device="cuda", seed=2,
+            batch_fn=gnb_mixed.batch_fn_for_pipeline(cfg))
+    ref, acc = pipe(), pipe()
+    for _ in range(3):
+        ref.submit(pay)
+        acc.submit_accumulated(pay)
+    res = ref.drain()
+    sinrs = np.concatenate([s for _, s in res]).astype(np.float64)
+    ok, mean, n = acc.fetch_accumulated()
+    assert ok and all(o.all() for o, _ in res) and n == 6
+    assert abs(mean - sinrs.mean()) <= 1e-6 * abs(sinrs.mean())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["tdl", "ue_decode_dl", "grid_prach"])
 def test_tiny_mixed_variant_on_card_matches_cpu(cuda, variant):

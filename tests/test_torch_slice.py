@@ -215,7 +215,9 @@ def test_port_imports_no_jax():
             "models.fapi_carrier", "testing.channels", "phy.lower.lower_phy",
             "phy.lower.amplitude", "phy.lower.prach_demod",
             "ran.prach_config", "ran.numerology", "ops.prach",
-            "phy.upper.pdcch", "phy.upper.ssb")
+            "phy.upper.pdcch", "phy.upper.ssb", "ops.bits", "ops.crc",
+            "ops.modulation", "ops.precoding", "ops.equalizer",
+            "ops.ldpc.rate_match", "ops.ldpc.encoder")
     code = ("import sys\n"
             + "".join(f"import srsran_project_23_5_tpu_torch.{m}\n"
                       for m in mods) +
