@@ -111,7 +111,28 @@ Phases, one line each:
    quantisation and hard decisions, the per-codeblock rate matcher,
    layer demapping and the one-layer codebook, MMSE 1×N and 2×2 ZF, the
    OFDM rx window offset, ``pdsch_transmit(w=)``) once each on the card at
-   273 PRB against the same call on the CPU.
+   273 PRB against the same call on the CPU;
+20. app — the gNB application (``apps.gnb.Gnb`` built with ``from_dict``)
+   in its over-the-air loopback mode with ``configs/gnb_loopback.yml``'s
+   settings at 273 PRB (μ=1, nfft 4096, TDD period 10 with 6 DL and 3 UL
+   slots, 300 slots, 30 dB, 6+6 packets) on the card: CU-CP, CU-UP,
+   DU-high, MAC and scheduler, FAPI, ``UpperPhy``, OFDM, AWGN and the UE.
+   The UE must reach RRC ACTIVE with every packet delivered both ways,
+   one RAR, at least 3 DL decodes, PRACH, PUCCH ACK and F2 CSI sent, a
+   CQI > 0 at the scheduler, and both kernels launched.  Every launch the
+   run made (gNB PDSCH encode and PUSCH decode, UE PUSCH encode and PDSCH
+   decode; tapped in ``sch`` and ``slot_programs``) is bit-exact against
+   its plain version, and each distinct shape is timed with its bound.
+   Printed: ms per slot (median and p90 after attach, over all slots and
+   over the slots with PHY work), slots/s, the split of a slot over the
+   host stack, the gNB DL and UL PHY, OFDM + AWGN, the UE's DL side and
+   its UL build; the device busy share of 20 slots under torch.profiler;
+   the same run on the CPU gives the same report (but its wall clock) and
+   the same uplink indications slot by slot;
+21. app-ta — the timing-advance closed loop of the JAX slow test
+   ``test_gnb_app_ta_closed_loop`` at 273 PRB (FDD, 200 slots, 28 dB, a
+   UE timing error of 12 samples): the UE attaches and its TA ends within
+   2.5 samples of 12; its launches bit-exact against plain too.
 
 Every timed shape prints the kernel's device time, its bound (the larger
 of bytes over 3.35 TB/s and operations over 67 TFLOP/s) and the share of
@@ -134,7 +155,9 @@ import types
 import numpy as np
 import torch
 
+from srsran_project_23_5_tpu_torch.apps import gnb as app_gnb
 from srsran_project_23_5_tpu_torch.fapi import messages as fapi
+from srsran_project_23_5_tpu_torch.fapi import validators
 from srsran_project_23_5_tpu_torch.models import (fapi_carrier, gnb_flagship,
                                                   gnb_mixed)
 from srsran_project_23_5_tpu_torch.ops import prach as prach_ops
@@ -1359,7 +1382,8 @@ def _replay_busy(pipe, batch, seed: int) -> tuple[str, float]:
 
 class _ModuleTap:
     """Stands in for a kernel wrapper's module inside ``sch`` (the one
-    caller of both wrappers on the scan paths): its kernel function keeps a
+    caller of both wrappers on the scan paths) or ``slot_programs`` (the
+    upper PHY's grouped PUSCH decode): its kernel function keeps a
     copy of each call's tensors, in ``sink.graph`` while a CUDA graph is
     being captured (the copies are captured too, so after each replay they
     hold what that replay's kernel took and gave), else in ``sink.eager``.
@@ -1387,13 +1411,15 @@ class _ModuleTap:
 @contextlib.contextmanager
 def _tapped_kernels():
     sink = types.SimpleNamespace(graph=[], eager=[])
-    saved = sch.encoder_cuda, sch.decoder_cuda
+    saved = sch.encoder_cuda, sch.decoder_cuda, slot_programs.decoder_cuda
     sch.encoder_cuda = _ModuleTap(encoder_cuda, "encode", sink)
     sch.decoder_cuda = _ModuleTap(decoder_cuda, "decode", sink)
+    slot_programs.decoder_cuda = _ModuleTap(decoder_cuda, "decode", sink)
     try:
         yield sink
     finally:
-        sch.encoder_cuda, sch.decoder_cuda = saved
+        (sch.encoder_cuda, sch.decoder_cuda,
+         slot_programs.decoder_cuda) = saved
 
 
 def _call_shape(rec: dict) -> str:
@@ -1737,6 +1763,255 @@ def phase_ops(dev, card: str, cfg=None) -> None:
           + f" on {card}")
 
 
+# configs/gnb_loopback.yml's settings at the full width (built with
+# from_dict: the card's Python may have no PyYAML)
+APP_RAW = {"cell": {"pci": 1, "nof_prb": 273, "mu": 1,
+                    "tdd": {"period": 10, "nof_dl": 6, "nof_ul": 3}},
+           "phy": "loopback", "slots": 300, "snr_db": 30.0,
+           "log": {"level": "warning"},
+           "ue": {"enabled": True, "dl_packets": 6, "ul_packets": 6}}
+# the JAX slow test test_gnb_app_ta_closed_loop, at 273 PRB
+APP_TA_RAW = {"cell": {"nof_prb": 273}, "phy": "loopback", "slots": 200,
+              "snr_db": 28.0, "ue": {"delay_samples": 12.0,
+                                     "dl_packets": 2, "ul_packets": 2}}
+APP_PROFILE_SLOTS = 20
+# the parts of an app slot: (owner, attribute, part)
+_APP_PARTS = (("du", "run_slot", "host"), ("mac_to_fapi", "translate", "host"),
+              ("fapi_to_mac", "handle_indications", "host"),
+              ("upper", "process_dl_slot", "gNB DL PHY"),
+              ("upper", "process_ul_slot", "gNB UL PHY"),
+              ("phy", "_ofdm_roundtrip", "OFDM+AWGN"),
+              ("phy", "_ue_process_dl", "UE DL"),
+              ("phy", "_ue_build_ul", "UE UL build"))
+
+
+@contextlib.contextmanager
+def _app_clock(gnb, sync):
+    """Time each part of every app slot (``_APP_PARTS``, the validators as
+    host, and the whole slot); each part calls ``sync`` before its clock
+    stops, so its device work is inside its time.  Also keeps the uplink
+    indications of each slot and the slot the UE reached RRC ACTIVE."""
+    rec = types.SimpleNamespace(parts=[], slots=[], inds=[], attach=None,
+                                slot=-1)
+    owners = {"du": gnb.du, "mac_to_fapi": gnb.mac_to_fapi,
+              "fapi_to_mac": gnb.fapi_to_mac, "upper": gnb._phy.upper,
+              "phy": gnb._phy}
+    targets = [(owners[o], a, part) for o, a, part in _APP_PARTS] + [
+        (validators, a, "host") for a in ("validate_dl_tti",
+                                          "validate_tx_data",
+                                          "validate_ul_tti")]
+    saved = [(owner, a, getattr(owner, a)) for owner, a, _ in targets]
+
+    def clocked(fn, part):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            sync()
+            rec.parts.append((rec.slot, part, time.perf_counter() - t0))
+            return out
+        return call
+
+    for owner, a, part in targets:
+        setattr(owner, a, clocked(getattr(owner, a), part))
+    handle = gnb.fapi_to_mac.handle_indications
+    gnb.fapi_to_mac.handle_indications = lambda inds: (
+        rec.inds.append((rec.slot, list(inds))), handle(inds))[1]
+    one_slot = gnb._run_one_slot
+
+    def run_one_slot(sfn, slot):
+        rec.slot = slot
+        t0 = time.perf_counter()
+        one_slot(sfn, slot)
+        sync()
+        rec.slots.append(time.perf_counter() - t0)
+        if rec.attach is None and gnb.ue.rrc.state == "active":
+            rec.attach = slot
+    gnb._run_one_slot = run_one_slot
+    try:
+        yield rec
+    finally:
+        for owner, a, fn in saved:
+            setattr(owner, a, fn)
+        del gnb._run_one_slot, gnb.fapi_to_mac.handle_indications
+
+
+def _app_launches(card: str, label: str, sink) -> tuple[list[dict], str]:
+    """Every kernel launch of an app run against its plain version on the
+    same inputs (bit for bit), then each distinct shape timed with its
+    bound.  Returns (times, "shape xN, ..." launches per shape)."""
+    plain = {"encode": encoder_cuda.encode_plain,
+             "decode": decoder_cuda.decode_plain}
+    shapes: dict[str, list[dict]] = {}
+    for i, e in enumerate(sink.eager):
+        want = plain[e["fn"]](e["x"], *e["args"], **e["kw"])
+        want = want if isinstance(want, tuple) else (want,)
+        _check(all(torch.equal(a, b) for a, b in zip(e["out"], want)),
+               f"{label}: launch {i} ({e['fn']} {_call_shape(e)}) != plain")
+        shapes.setdefault(f"{e['fn']}r {_call_shape(e)}", []).append(e)
+    times = []
+    for key, recs in sorted(shapes.items()):
+        e = recs[0]
+        x, (bg, zc), kw = e["x"], e["args"][:2], e["kw"]
+        shape = f"{_call_shape(e)} ({label})"
+        if e["fn"] == "encode":
+            times.append(_timed(
+                "encoder", shape,
+                lambda x=x, bg=bg, zc=zc: encoder_cuda.encode(x, bg, zc),
+                lambda x=x, bg=bg, zc=zc: encoder_cuda.encode_plain(x, bg,
+                                                                   zc),
+                200, 3, encoder_bound(bg, zc, x.shape[0])))
+        else:
+            times.append(_timed(
+                "decoder", shape,
+                lambda x=x, bg=bg, zc=zc, kw=kw: decoder_cuda.decode(
+                    x, bg, zc, **kw),
+                lambda x=x, bg=bg, zc=zc, kw=kw: decoder_cuda.decode_plain(
+                    x, bg, zc, **kw),
+                100, 3, decoder_bound(x, bg, zc, **kw)))
+            times[-1]["ctas_per_sm"], times[-1]["waves"] = _waves(
+                x.shape[0], bg, zc, kw.get("nof_used_blocks"))
+        times[-1]["launches"] = len(recs)
+    counts = ", ".join(f"{k} x{len(v)}" for k, v in sorted(shapes.items()))
+    return times, counts
+
+
+def _app_run(dev, card: str, label: str, raw: dict) -> dict:
+    """One app run on the card, tapped and clocked, with the kernel counts
+    set to 0 just before ``run()`` and read just after."""
+    gnb = app_gnb.Gnb(app_gnb.GnbConfig.from_dict(raw))
+    _check(gnb._phy.device == dev, f"{label}: the app runs on "
+           f"{gnb._phy.device}, not {dev}")
+    with _tapped_kernels() as sink, \
+            _app_clock(gnb, torch.cuda.synchronize) as rec:
+        _reset_counts()
+        t0 = time.perf_counter()
+        rep = gnb.run()
+        wall = time.perf_counter() - t0
+        launches = _kernel_counts()
+    _check(launches["encoder"] > 0 and launches["decoder"] > 0
+           and sum(launches.values()) == len(sink.eager),
+           f"{label}: launches {launches}, {len(sink.eager)} tapped calls")
+    times, counts = _app_launches(card, label, sink)
+    return {"gnb": gnb, "rep": rep, "rec": rec, "wall": wall,
+            "launches": launches, "times": times, "counts": counts}
+
+
+def _app_gates(label: str, gnb, rep: dict) -> None:
+    """test_gnb_app_phy_loopback_dci_over_grid's gates."""
+    st, cfg = rep["phy_stats"], gnb.cfg
+    _check(rep["ue_rrc_state"] == "active"
+           and rep["ue_dl_rx_packets"] == cfg.ue_dl_packets
+           and rep["core_ul_rx_packets"] == cfg.ue_ul_packets,
+           f"{label}: the UE did not attach and exchange every packet: {rep}")
+    _check(st["rar_decoded"] == 1 and st["dl_decoded"] >= 3
+           and min(st["prach_tx"], st["pucch_ack_tx"], st["csi_f2_tx"]) >= 1,
+           f"{label}: PHY counters {st}")
+    _check(gnb.du.mac.scheduler.ues[rep["ue_rnti"]].cqi > 0,
+           f"{label}: no CQI reached the scheduler")
+
+
+def _pct(xs, q) -> float:
+    return float(np.percentile(np.asarray(xs) * 1e3, q)) if xs else 0.0
+
+
+def _strip_wall(rep: dict) -> dict:
+    return {k: v for k, v in rep.items() if k not in ("wall_s", "slots_per_s")}
+
+
+def phase_app(dev, card: str, raw: dict = APP_RAW) -> dict:
+    """The gNB app's over-the-air loopback at full width on the card."""
+    nprb = raw["cell"]["nof_prb"]
+    label = f"app {nprb}-PRB"
+    r = _app_run(dev, card, label, raw)
+    gnb, rep, rec = r["gnb"], r["rep"], r["rec"]
+    cfg = gnb.cfg
+    _app_gates(label, gnb, rep)
+    _check(rec.attach is not None, f"{label}: no attach slot")
+    # ms per slot after attach: every slot, and the slots with PHY work
+    busy = {s for s, part, _ in rec.parts if part not in ("host",)}
+    after = range(rec.attach + 1, len(rec.slots))
+    every = [rec.slots[s] for s in after]
+    work = [rec.slots[s] for s in after if s in busy]
+    split: dict[str, float] = {}
+    for s, part, dt in rec.parts:
+        if s > rec.attach:
+            split[part] = split.get(part, 0.0) + dt
+    total = sum(every)
+    split_s = ", ".join(f"{k} {v / len(every) * 1e3:.3f} ms "
+                        f"({100 * v / total:.1f}%)"
+                        for k, v in sorted(split.items(),
+                                           key=lambda kv: -kv[1]))
+
+    # the same run on the CPU: the same report and uplink indications
+    cpu = app_gnb.Gnb(app_gnb.GnbConfig.from_dict({**raw, "platform": "cpu"}))
+    with _app_clock(cpu, lambda: None) as cpu_rec:
+        cpu_rep = cpu.run()
+    _check(_strip_wall(cpu_rep) == _strip_wall(rep),
+           f"{label}: the card's report {rep} != the CPU's {cpu_rep}")
+    _check([s for s, _ in rec.inds] == [s for s, _ in cpu_rec.inds]
+           and all(_same_indications(g, w, 0.05) for (_, g), (_, w)
+                   in zip(rec.inds, cpu_rec.inds)),
+           f"{label}: the uplink indications differ between the card and "
+           f"the CPU")
+    n_inds = sum(len(i) for _, i in cpu_rec.inds)
+
+    # the device busy share of slots with traffic, after the run
+    bearer = next(iter(gnb.cu_up.ues.values()))[0]
+    for i in range(cfg.ue_dl_packets):
+        gnb.cu_up.handle_ngu_pdu(app_gnb.gtpu.encode(
+            app_gnb.gtpu.GtpuHeader(bearer.dl_teid, qfi=9),
+            b"dl-ip-%03d" % i * 40))
+    for i in range(cfg.ue_ul_packets):
+        gnb.ue.send_ip_packet(b"ul-ip-%03d" % i * 30)
+    next_slot = iter(range(cfg.slots, cfg.slots + APP_PROFILE_SLOTS))
+    cfg.slots += APP_PROFILE_SLOTS           # the validators' slot bound
+    prof = _profiled(lambda: gnb._run_one_slot(0, next(next_slot)),
+                     APP_PROFILE_SLOTS, "slot")
+
+    st = rep["phy_stats"]
+    print(f"[{label}] gnb_loopback settings, mu={cfg.mu}, nfft "
+          f"{gnb._phy.nfft}, TDD {cfg.tdd}, {cfg.slots - APP_PROFILE_SLOTS} "
+          f"slots at {cfg.snr_db:.0f} dB: RRC {rep['ue_rrc_state']} at slot "
+          f"{rec.attach}, packets DL {rep['ue_dl_rx_packets']}/"
+          f"{cfg.ue_dl_packets} UL {rep['core_ul_rx_packets']}/"
+          f"{cfg.ue_ul_packets}, phy_stats {st}, CQI "
+          f"{gnb.du.mac.scheduler.ues[rep['ue_rnti']].cqi}; "
+          f"{r['wall']:.2f} s wall, {rep['slots_per_s']} slots/s; ms per "
+          f"slot after attach: all {len(every)} slots median "
+          f"{_pct(every, 50):.3f} p90 {_pct(every, 90):.3f}, the {len(work)} "
+          f"with PHY work median {_pct(work, 50):.3f} p90 "
+          f"{_pct(work, 90):.3f}; split per slot after attach: {split_s}; "
+          f"launches {r['launches']} on {card}")
+    print(f"[{label}] every launch bit-exact against its plain version; "
+          f"launches per shape: {r['counts']}; "
+          + "; ".join(f"{_fmt(t)} x{t['launches']}" for t in r["times"])
+          + f"; the same run on the CPU: the same report and the same "
+          f"{n_inds} uplink indications in {len(cpu_rec.inds)} slots; "
+          f"{APP_PROFILE_SLOTS} slots with "
+          f"{cfg.ue_dl_packets}+{cfg.ue_ul_packets} more packets under "
+          f"torch.profiler: {prof} on {card}")
+    return {"launches": r["launches"], "times": r["times"]}
+
+
+def phase_app_ta(dev, card: str, raw: dict = APP_TA_RAW) -> dict:
+    """The timing-advance closed loop through the app on the card."""
+    label = f"app-ta {raw['cell']['nof_prb']}-PRB"
+    r = _app_run(dev, card, label, raw)
+    rep, delay = r["rep"], raw["ue"]["delay_samples"]
+    # test_gnb_app_ta_closed_loop's gates
+    _check(rep["ue_rrc_state"] == "active"
+           and rep["phy_stats"]["rar_decoded"] == 1
+           and abs(rep["ue_ta_samples"] - delay) <= 2.5,
+           f"{label}: RRC {rep['ue_rrc_state']}, TA {rep['ue_ta_samples']} "
+           f"vs delay {delay}, phy_stats {rep['phy_stats']}")
+    print(f"[{label}] FDD, {rep['slots']} slots at {raw['snr_db']:.0f} dB, "
+          f"UE timing error {delay} samples: RRC {rep['ue_rrc_state']}, TA "
+          f"{rep['ue_ta_samples']} samples, phy_stats {rep['phy_stats']}, "
+          f"{rep['slots_per_s']} slots/s, launches {r['launches']}, every "
+          f"launch bit-exact against plain ({r['counts']}) on {card}")
+    return {"launches": r["launches"], "times": []}
+
+
 def _kernel_entry(name: str, kind: str, paths: list[dict],
                   max_err: float) -> dict:
     """One kernels-JSON entry: launches of every driven path (each counted
@@ -1786,7 +2061,9 @@ def main() -> None:
     fs = phase_flagship_scan(dev, card)
     acc = phase_accumulate(dev, card)
     phase_ops(dev, card)
-    paths = [s, m, u, v, h, lo, *scans, fs, acc]
+    app = phase_app(dev, card)
+    app_ta = phase_app_ta(dev, card)
+    paths = [s, m, u, v, h, lo, *scans, fs, acc, app, app_ta]
     print(json.dumps({"kernels": [
         _kernel_entry("ldpc_encoder", "encoder", paths, enc_err),
         _kernel_entry("ldpc_decoder", "decoder", paths,

@@ -3,23 +3,27 @@ field by field.
 
 This system has no weights: its parameters are the frozen configuration
 dataclasses (and the 38.212 tables both packages read).  ``from_jax_sh``,
-``from_jax_carrier``, ``from_jax_mixed``, ``from_jax_upper_phy`` and
-``from_jax_message`` take objects of the JAX package as arguments, so this
-module never imports JAX.  ``from_jax_message`` turns a JAX FAPI request or
-PDU into the port's, so both packages can be fed the same requests.  Fields
-the port does not carry yet (3-layer shared channels, the upper PHY's
-sanitizer) raise ``NotImplementedError`` naming the field.
+``from_jax_carrier``, ``from_jax_mixed``, ``from_jax_upper_phy``,
+``from_jax_cell``, ``from_jax_gnb_config`` and ``from_jax_message`` take
+objects of the JAX package as arguments, so this module never imports JAX.
+``from_jax_message`` turns a JAX FAPI request or PDU into the port's, so
+both packages can be fed the same requests; ``from_jax_cell`` and
+``from_jax_gnb_config`` let both run the same cell and app.  A field the
+port does not carry (3-layer shared channels) raises
+``NotImplementedError`` naming the field.
 """
 from __future__ import annotations
 
 import dataclasses
 
+from .apps.gnb import GnbConfig
 from .fapi import messages
 from .models.gnb_flagship import CarrierConfig
 from .models.gnb_mixed import MixedSlotConfig
 from .phy.upper import csi_rs, pdcch, pucch, ssb, ulsch
 from .phy.upper.sch import ShConfig
 from .phy.upper.upper_phy import UpperPhyConfig
+from .scheduler import CellConfig, TddPattern
 
 
 def _refuse(cls: str, field: str, why: str) -> None:
@@ -68,11 +72,25 @@ def from_jax_mixed(cfg) -> MixedSlotConfig:
 
 
 def from_jax_upper_phy(cfg) -> UpperPhyConfig:
-    """JAX ``upper_phy.UpperPhyConfig`` → the port's."""
-    if cfg.sanitize:
-        _refuse("UpperPhyConfig", "sanitize",
-                "the grid write-overlap sanitizer")
+    """JAX ``upper_phy.UpperPhyConfig`` → the port's (``sanitize``
+    included)."""
     return _carry(UpperPhyConfig, cfg)
+
+
+def from_jax_cell(cell) -> CellConfig:
+    """JAX ``scheduler.CellConfig`` (with its ``TddPattern``, or FDD) → the
+    port's."""
+    tdd = None if cell.tdd is None else _carry(TddPattern, cell.tdd)
+    return _carry(CellConfig, cell, tdd=tdd)
+
+
+def from_jax_gnb_config(cfg) -> GnbConfig:
+    """JAX ``apps.gnb.GnbConfig`` → the port's, on the port's default
+    platform ("gpu"): the JAX config's own platform names a JAX backend."""
+    out = _carry(GnbConfig, cfg, platform="gpu",
+                 tdd=None if cfg.tdd is None else dict(cfg.tdd))
+    out.validate()
+    return out
 
 
 # JAX config class name → converter

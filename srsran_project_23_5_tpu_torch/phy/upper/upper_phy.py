@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ...fapi import messages as fapi
+from ...support import sanitizers
 from . import csi_rs as csi_rs_proc
 from . import pdcch as pdcch_proc
 from . import pucch as pucch_proc
@@ -37,8 +38,9 @@ class UpperPhyConfig:
     # dispatch for A/B comparison
     bucketed: bool = True
     nof_ldpc_iterations: int = 6
-    # the grid write-overlap sanitizer of the JAX package's debug mode
-    # (support/sanitizers.py) is not ported: True raises
+    # sanitize=True checks every DL slot's PDUs for two channels claiming
+    # one RE (support/sanitizers.py, raises GridOverlapError) before the
+    # grid is built; a host-side debug mode, off on the real-time path
     sanitize: bool = False
 
     @property
@@ -59,10 +61,6 @@ class UpperPhy:
 
     def __init__(self, config: UpperPhyConfig,
                  device: torch.device | str | None = None) -> None:
-        if config.sanitize:
-            raise NotImplementedError(
-                "UpperPhyConfig.sanitize: the grid write-overlap sanitizer "
-                "is not ported yet")
         self.config = config
         self.device = resolve_device(device)
         self.softbuffers = SoftbufferPool()
@@ -76,6 +74,9 @@ class UpperPhy:
                         data: fapi.TxDataRequest | None = None
                         ) -> torch.Tensor:
         """Build the slot's DL resource grid [14, nsc] from FAPI PDUs."""
+        if self.config.sanitize:
+            sanitizers.check_dl_slot(req, self.config.nof_tx_ports,
+                                     self.config.nsc)
         dev = self.device
         tbs = data.transport_blocks if data else []
         if self.config.bucketed:

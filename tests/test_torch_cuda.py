@@ -506,3 +506,57 @@ def test_async_lower_phy_on_card_matches_cpu(cuda):
         a, b = out[str(cuda)][s], out["cpu"][s]
         assert float((a - b).abs().max()) < 1e-4 * float(b.abs().max())
         assert float((b - grids[s]).abs().max()) < 1e-3
+
+
+class _Tap:
+    """A kernel wrapper's module as ``sch``/``slot_programs`` see it, its
+    kernel function keeping (name, inputs, outputs) of every call."""
+
+    def __init__(self, module, name, calls):
+        fn = getattr(module, name)
+        self._module = module
+
+        def call(x, *args, **kw):
+            out = fn(x, *args, **kw)
+            outs = out if isinstance(out, tuple) else (out,)
+            calls.append((name, x.clone(), args, kw,
+                          [o.clone() for o in outs]))
+            return out
+        setattr(self, name, call)
+
+    def __getattr__(self, name):
+        return getattr(self._module, name)
+
+
+@pytest.mark.cuda
+def test_gnb_app_loopback_on_card(cuda, monkeypatch):
+    """The gNB app's over-the-air loopback on the card (52 PRB, 160 slots,
+    28 dB, 2+2 packets, the app's default platform): the UE reaches RRC
+    ACTIVE with every packet delivered, both kernels ran, and every launch
+    equals its plain version on the same inputs."""
+    from srsran_project_23_5_tpu_torch.apps import gnb as app_gnb
+    from srsran_project_23_5_tpu_torch.phy.upper import sch
+    calls = []
+    monkeypatch.setattr(sch, "encoder_cuda",
+                        _Tap(encoder_cuda, "encode", calls))
+    monkeypatch.setattr(sch, "decoder_cuda",
+                        _Tap(decoder_cuda, "decode", calls))
+    monkeypatch.setattr(slot_programs, "decoder_cuda",
+                        _Tap(decoder_cuda, "decode", calls))
+    gnb = app_gnb.Gnb(app_gnb.GnbConfig(
+        slots=160, phy="loopback", ue_dl_packets=2, ue_ul_packets=2,
+        snr_db=28.0, nof_prb=52))
+    assert gnb._phy.device.type == "cuda"
+    rep = gnb.run()
+    assert rep["ue_rrc_state"] == "active", rep
+    assert rep["ue_dl_rx_packets"] == rep["core_ul_rx_packets"] == 2, rep
+    assert rep["phy_stats"]["rar_decoded"] == 1, rep
+    assert {c[0] for c in calls} == {"encode", "decode"}
+    plain = {"encode": encoder_cuda.encode_plain,
+             "decode": decoder_cuda.decode_plain}
+    for name, x, args, kw, outs in calls:
+        assert x.is_cuda
+        want = plain[name](x, *args, **kw)
+        want = want if isinstance(want, tuple) else (want,)
+        assert all(torch.equal(a, b) for a, b in zip(outs, want)), (
+            name, tuple(x.shape), args, kw)

@@ -186,12 +186,11 @@ def _unported(cls, field, value):
     ("PdcchConfig", "interleaved", True), ("PdcchConfig", "nof_symbols", 2),
     ("UpperPhyConfig", "sanitize", True)])
 def test_convert_refuses_unported_fields(cls, field, value):
-    """A 3-layer shared channel and the upper PHY's sanitizer are refused,
-    naming the field; the TDL channel, the UE-side decode and interleaved or
-    multi-symbol CORESETs are carried over field by field."""
+    """A 3-layer shared channel is refused, naming the field; the TDL
+    channel, the UE-side decode, interleaved or multi-symbol CORESETs and
+    the upper PHY's sanitize mode are carried over field by field."""
     obj, conv = _unported(cls, field, value)
-    if (cls, field) in (("ShConfig", "nof_layers"),
-                        ("UpperPhyConfig", "sanitize")):
+    if (cls, field) == ("ShConfig", "nof_layers"):
         with pytest.raises(NotImplementedError, match=f"{cls}.{field}"):
             conv(obj)
         return
@@ -208,19 +207,18 @@ def test_convert_refuses_unported_fields(cls, field, value):
 
 
 def test_port_imports_no_jax():
-    """The port's modules (and chip_smoke.py's imports) load neither JAX
-    nor anything of the JAX package."""
-    mods = ("phy.pipeline", "convert", "utils.kernels", "phy.upper.upper_phy",
-            "phy.upper.slot_programs", "fapi.messages", "models.gnb_mixed",
-            "models.fapi_carrier", "testing.channels", "phy.lower.lower_phy",
-            "phy.lower.amplitude", "phy.lower.prach_demod",
-            "ran.prach_config", "ran.numerology", "ops.prach",
-            "phy.upper.pdcch", "phy.upper.ssb", "ops.bits", "ops.crc",
-            "ops.modulation", "ops.precoding", "ops.equalizer",
-            "ops.ldpc.rate_match", "ops.ldpc.encoder")
-    code = ("import sys\n"
-            + "".join(f"import srsran_project_23_5_tpu_torch.{m}\n"
-                      for m in mods) +
+    """Every module of the port (found by walking the package, the apps
+    among them) and chip_smoke.py's imports load neither JAX nor anything
+    of the JAX package."""
+    code = ("import importlib, pkgutil, sys\n"
+            "import srsran_project_23_5_tpu_torch as pkg\n"
+            "mods = [m.name for m in pkgutil.walk_packages(\n"
+            "    pkg.__path__, pkg.__name__ + '.')]\n"
+            "for m in mods:\n"
+            "    importlib.import_module(m)\n"
+            "assert {'srsran_project_23_5_tpu_torch.apps.gnb',\n"
+            "        'srsran_project_23_5_tpu_torch.apps.phy_loop'} <= set(mods)\n"
+            "import chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m == 'jax'\n"
             "             or m.startswith(('jax.', 'jaxlib'))\n"
             "             or m.split('.')[0] == 'srsran_project_23_5_tpu')\n"
@@ -234,13 +232,17 @@ def test_port_imports_no_jax():
 
 @pytest.mark.parametrize("entry", ["SlotPipeline", "UpperPhy",
                                    "make_payloads", "harq_retx_batch",
-                                   "LowerPhy", "AsyncLowerPhy"])
+                                   "LowerPhy", "AsyncLowerPhy", "apps.gnb",
+                                   "apps.phy_loop"])
 def test_entry_points_default_to_the_card(entry, monkeypatch):
     """Without a device argument the entry points run on the current CUDA
     device; where there is none they raise instead of falling back to the
     CPU.  device="cpu" still runs the plain versions."""
+    from srsran_project_23_5_tpu_torch.apps import gnb as tgnb
+    from srsran_project_23_5_tpu_torch.apps import phy_loop as tphy_loop
     from srsran_project_23_5_tpu_torch.models import gnb_mixed as tmixed
     from srsran_project_23_5_tpu_torch.phy.lower import lower_phy as tlower
+    from srsran_project_23_5_tpu_torch.scheduler import CellConfig
     from srsran_project_23_5_tpu_torch.phy.upper import upper_phy as tupper
     tiny = tmixed.tiny_mixed()
     lcfg = tlower.LowerPhyConfig(mu=1, nfft=256, nof_prb=12)
@@ -269,6 +271,13 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
             lcfg, tlower.LoopbackRadio(), **kw).device,
         "AsyncLowerPhy": lambda **kw: tlower.AsyncLowerPhy(
             lcfg, lambda s: None, lambda s, g: None, **kw).device,
+        # the app's platform: "gpu" by default, "cpu" where the config says
+        "apps.gnb": lambda device=None: tgnb.Gnb(tgnb.GnbConfig(
+            nof_prb=24, phy="loopback",
+            **({} if device is None else {"platform": device})
+        ))._phy.device,
+        "apps.phy_loop": lambda **kw: tphy_loop.PhyLoop(
+            CellConfig(nof_prb=24), **kw).device,
     }
     assert calls[entry](device="cpu") == torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -29,6 +29,7 @@ from srsran_project_23_5_tpu.phy.upper.csi_rs import CsiRsConfig
 from srsran_project_23_5_tpu.phy.upper.pdcch import PdcchConfig
 from srsran_project_23_5_tpu.phy.upper.ssb import SsbConfig
 from srsran_project_23_5_tpu.ran import tbs as tbs_mod
+from srsran_project_23_5_tpu.support import sanitizers
 from srsran_project_23_5_tpu_torch import convert
 from srsran_project_23_5_tpu_torch.fapi import messages as tfapi
 from srsran_project_23_5_tpu_torch.phy.upper import harq as tharq
@@ -36,6 +37,7 @@ from srsran_project_23_5_tpu_torch.phy.upper import sch as tsch
 from srsran_project_23_5_tpu_torch.phy.upper import \
     slot_programs as tslot_programs
 from srsran_project_23_5_tpu_torch.phy.upper import upper_phy as tupper_phy
+from srsran_project_23_5_tpu_torch.support import sanitizers as tsanitizers
 
 torch.set_num_threads(1)
 
@@ -424,8 +426,28 @@ def test_fapi_messages_carry_over():
 
 
 def test_sanitize_mode_is_refused():
-    with pytest.raises(NotImplementedError, match="sanitize"):
-        tupper_phy.UpperPhy(tupper_phy.UpperPhyConfig(sanitize=True))
+    """Sanitize mode refuses a DL slot whose two PDSCH claim the same REs
+    (PRB 16-19), as the JAX UpperPhy does, and builds a disjoint slot."""
+    def req(second_prb):
+        return fapi.DlTtiRequest(0, 0, pdsch_pdus=[
+            fapi.PdschPdu(_sh(0x4601, 0, 20, first_symbol=2,
+                              nof_symbols=12)),
+            fapi.PdschPdu(_sh(0x4602, second_prb, 20, first_symbol=2,
+                              nof_symbols=12))])
+    cfg = upper_phy.UpperPhyConfig(nof_prb=52, sanitize=True)
+    tphy = tupper_phy.UpperPhy(convert.from_jax_upper_phy(cfg), "cpu")
+    assert tphy.config.sanitize
+    jphy = upper_phy.UpperPhy(cfg)
+    bad = req(16)
+    with pytest.raises(sanitizers.GridOverlapError, match="pdsch") as want:
+        jphy.process_dl_slot(bad)
+    with pytest.raises(tsanitizers.GridOverlapError, match="pdsch") as got:
+        tphy.process_dl_slot(convert.from_jax_message(bad))
+    assert str(got.value) == str(want.value)
+    good = convert.from_jax_message(req(24))
+    data = tfapi.TxDataRequest(0, 0, [
+        np.zeros(p.config.tbs, np.int8) for p in good.pdsch_pdus])
+    assert tphy.process_dl_slot(good, data).shape == (14, 52 * 12)
 
 
 def test_fetch_is_one_transfer_of_every_leaf():
