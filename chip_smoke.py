@@ -132,7 +132,30 @@ Phases, one line each:
 21. app-ta — the timing-advance closed loop of the JAX slow test
    ``test_gnb_app_ta_closed_loop`` at 273 PRB (FDD, 200 slots, 28 dB, a
    UE timing error of 12 samples): the UE attaches and its TA ends within
-   2.5 samples of 12; its launches bit-exact against plain too.
+   2.5 samples of 12; its launches bit-exact against plain too;
+22. fronthaul — the 273-PRB FAPI carrier (μ=1, nfft 4096, 4 rx ports, 20
+   dB) driven by an SCF-speaking MAC and carried over the fronthaul.  Its
+   DL and UL slots are built with ``fapi.builders`` and translated with
+   ``fapi.scf`` (what differs from the carrier's own requests is printed:
+   what SCF cannot express).  DL over split 7.2: ``UpperPhy`` →
+   ``RuOfh`` (BFP w=9, 29 frames) → an RU-side ``OfhSector``: the rebuilt
+   grid above 40 dB of SNR, the card's bytes and frames equal to the same
+   grid's on the CPU at w = 9, 12, 14, 16, then OFDM + AWGN and every
+   PDSCH, DCI and the PBCH recovered.  UL over split 7.2: the UEs' received
+   grid leaves four RU-side sectors (one eAxC per rx port, every frame
+   offered to each of four DU-side sectors), the rebuilt [4, 14, nsc] grid
+   equals the CPU's, and ``UpperPhy`` returns every CRC, payload, UCI bit
+   and the preamble (the PRACH window bypasses the OFH).  Split 8:
+   ``RuGeneric`` over ``InMemoryRadio`` with AWGN as its channel (DL,
+   every channel recovered) and without (the UL grid, every check), over
+   ``TrxDriver`` (DL, PDSCH A), and over ``SocketRadio`` at 52 PRB, whose
+   slot fits the socket's receive buffer.  Every LDPC launch is tapped and
+   bit-exact against its plain version.  Printed with the card: µs per
+   slot and eAxC for DL compress + frame and UL reassemble + decompress
+   (synchronised, ``utils.benchmark`` percentiles, ``utils.tracing``
+   spans), the device time of the slot's BFP pack and unpack, bytes per
+   slot and eAxC, the BFP SNR at w = 9, 12, 14, and torch.profiler over
+   5 DL and 5 UL slots.
 
 Every timed shape prints the kernel's device time, its bound (the larger
 of bytes over 3.35 TB/s and operations over 67 TFLOP/s) and the share of
@@ -147,7 +170,9 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import re
+import socket
 import subprocess
 import time
 import types
@@ -155,11 +180,13 @@ import types
 import numpy as np
 import torch
 
+from srsran_project_23_5_tpu_torch import ofh, radio, ru
 from srsran_project_23_5_tpu_torch.apps import gnb as app_gnb
 from srsran_project_23_5_tpu_torch.fapi import messages as fapi
-from srsran_project_23_5_tpu_torch.fapi import validators
+from srsran_project_23_5_tpu_torch.fapi import scf, validators
 from srsran_project_23_5_tpu_torch.models import (fapi_carrier, gnb_flagship,
                                                   gnb_mixed)
+from srsran_project_23_5_tpu_torch.ofh import compression as bfp
 from srsran_project_23_5_tpu_torch.ops import prach as prach_ops
 from srsran_project_23_5_tpu_torch.ops.ldpc import (decoder_cuda,
                                                     encoder_cuda, graphs,
@@ -170,7 +197,9 @@ from srsran_project_23_5_tpu_torch.phy.lower import (lower_phy, ofdm,
 from srsran_project_23_5_tpu_torch.phy.upper import (pdcch, sch,
                                                      slot_programs, ssb,
                                                      upper_phy)
-from srsran_project_23_5_tpu_torch.utils import kernels
+from srsran_project_23_5_tpu_torch.radio import trx as trx_mod
+from srsran_project_23_5_tpu_torch.ran import numerology
+from srsran_project_23_5_tpu_torch.utils import benchmark, kernels, tracing
 
 FLAGSHIP_CBS = 88          # 8 slots x 11 codeblocks
 SLICE_BATCH = 8
@@ -224,9 +253,8 @@ def _bound(nbytes: float, ops: float) -> tuple[float, str]:
 def encoder_bound(bg: int, zc: int, batch: int) -> tuple[float, str]:
     """Message bytes in, codeword bytes out; one XOR per edge-lane."""
     g = graphs.lifted_graph(bg, zc)
-    edges = sum(len(c) for c in g.row_cols)
     return _bound(batch * (g.nof_msg_blocks + g.nof_var_blocks) * zc,
-                  batch * edges * zc)
+                  batch * g.nof_edges * zc)
 
 
 def decoder_bound(llr: torch.Tensor, bg: int, zc: int, **kw
@@ -1277,7 +1305,6 @@ def phase_lower(dev, card: str, u: dict) -> dict:
     eng = lower_phy.AsyncLowerPhy(
         cfg, lambda s: grids[s] if s < nslots else None,
         lambda s, g: got.__setitem__(s, g), depth=2, device=dev)
-    sigma = float(np.sqrt(car.nfft) * 10 ** (-car.snr_db / 20) / np.sqrt(2))
     total = sum(eng.timeline.slot_size(s) for s in range(nslots))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1285,8 +1312,7 @@ def phase_lower(dev, card: str, u: dict) -> dict:
     while pulled < total:
         n = min(7777 + 1000 * (chunks % 3), total - pulled)
         bb = eng.pull_tx(n)
-        nz = torch.randn((2, n), generator=gen, device=dev) * sigma
-        eng.push_rx(bb + torch.complex(nz[0], nz[1]))
+        eng.push_rx(fapi_carrier.add_awgn(bb, car, car.snr_db, gen))
         pulled += n
         chunks += 1
     torch.cuda.synchronize()
@@ -2012,6 +2038,345 @@ def phase_app_ta(dev, card: str, raw: dict = APP_TA_RAW) -> dict:
     return {"launches": r["launches"], "times": []}
 
 
+FRONTHAUL_REPS = 20          # timed slots per fronthaul measurement
+SOCKET_PRB = 52              # SocketRadio: a slot its receive buffer holds
+
+
+class _TrxSession(radio.RadioSession):
+    """``TrxDriver`` as a radio session: a slot written at its timestamp
+    and read back whole (host numpy, as the driver is)."""
+
+    def __init__(self, trx, nof_samples: int) -> None:
+        self.trx, self.nof_samples = trx, nof_samples
+
+    def transmit(self, samples, timestamp: int) -> None:
+        self.trx.write(samples.cpu().numpy(), timestamp)
+
+    def receive(self):
+        return self.trx.read(self.nof_samples)
+
+
+def _dl_verdicts(ue: torch.Tensor, dl, data) -> dict[str, bool]:
+    """The UE's receivers on its grid [1, 14, nsc]: each PDSCH decoded to
+    its TB, each DCI to its payload, the PBCH to its 32 bits."""
+    out = {}
+    for p, tb in zip(dl.pdsch_pdus, data.transport_blocks):
+        res = sch.pusch_receive(ue[None], p.config)
+        out[f"pdsch {p.config.rnti:#x}"] = bool(res.tb_crc_ok[0]) and \
+            np.array_equal(res.tb_bits[0].cpu().numpy(), tb)
+    for p in dl.pdcch_pdus:
+        res = pdcch.pdcch_receive(ue, p.config)
+        out[f"dci {p.config.rnti:#x}"] = bool(res.crc_ok[0]) and \
+            np.array_equal(res.payload[0].cpu().numpy(), p.payload_bits)
+    for p in dl.ssb_pdus:
+        lo = p.first_subcarrier
+        bits, ok = ssb.ssb_receive_pbch(ue[:, 2:6, lo:lo + ssb.SSB_NSC],
+                                        p.config)
+        out["pbch"] = bool(ok[0]) and np.array_equal(
+            bits[0].cpu().numpy(), p.payload_bits)
+    return out
+
+
+def _snr_db(ref: torch.Tensor, got: torch.Tensor) -> float:
+    return 10 * math.log10(float((ref.abs() ** 2).mean())
+                           / float(((got - ref).abs() ** 2).mean()))
+
+
+def _ofh_dl(dev, car, grid: torch.Tensor, ctx=(0, 0, 0)):
+    """A DL grid through RuOfh to an RU-side sector: (frames, the rebuilt
+    grid, the RU-side sector)."""
+    frames, got = [], {}
+    ru_dl = ru.RuOfh(ru.RuConfig(nof_prb=car.nof_prb, mu=car.mu),
+                     frames.append, device=dev)
+    ru_side = ofh.OfhSector(ofh.OfhSectorConfig(nof_prb=car.nof_prb,
+                                                eaxc_ul=0),
+                            lambda f: None, device=dev)
+    ru_side.on_ul_slot = lambda key, g: got.update({key: g})
+    ru_dl.handle_dl_grid(ctx, grid)
+    for f in frames:
+        ru_side.handle_rx_frame(f)
+    return frames, got[ctx], ru_side
+
+
+def _ul_frames(dev, car, rx: torch.Tensor, ctx=(0, 1, 0)) -> list[bytes]:
+    """The frames of the UL grid [ports, 14, nsc] from one RU-side sector
+    per rx port (eAxC = port)."""
+    frames = []
+    for p in range(rx.shape[0]):
+        ofh.OfhSector(ofh.OfhSectorConfig(nof_prb=car.nof_prb, eaxc_dl=p),
+                      frames.append, device=dev).transmit_dl_slot(
+            *ctx, rx[p])
+    return frames
+
+
+def _du_receive(dev, car, frames: list[bytes], nof_ports: int):
+    """The frames offered to every one of nof_ports DU-side sectors (eAxC
+    = port): (rebuilt grid [ports, 14, nsc], the sectors)."""
+    got, du = {}, []
+    for p in range(nof_ports):
+        s = ofh.OfhSector(ofh.OfhSectorConfig(nof_prb=car.nof_prb,
+                                              eaxc_ul=p),
+                          lambda f: None, device=dev)
+        s.on_ul_slot = lambda key, g, p=p: got.update({p: g})
+        du.append(s)
+    for f in frames:
+        for s in du:
+            s.handle_rx_frame(f)
+    return torch.stack([got[p] for p in range(nof_ports)]), du
+
+
+def _ofh_ul(dev, car, rx: torch.Tensor):
+    """The UL grid [ports, 14, nsc] from one RU-side sector per rx port to
+    one DU-side sector per port: (frames, rebuilt grid, DU-side
+    sectors)."""
+    frames = _ul_frames(dev, car, rx)
+    return (frames, *_du_receive(dev, car, frames, rx.shape[0]))
+
+
+def _fronthaul_times(dev, card: str, car, grid: torch.Tensor,
+                     rx: torch.Tensor) -> str:
+    """µs per slot and eAxC of DL compress + frame and UL reassemble +
+    decompress (each call ends synchronised; ``utils.benchmark``
+    percentiles, ``utils.tracing`` spans), the device time of the slot's
+    BFP pack and unpack (CUDA events, launches queued), bytes per slot and
+    eAxC, and the BFP SNR of both grids at w = 9, 12, 14."""
+    sync = torch.cuda.synchronize
+    ru_dl = ru.RuOfh(ru.RuConfig(nof_prb=car.nof_prb, mu=car.mu),
+                     lambda f: None, device=dev)
+    ul_frames = _ul_frames(dev, car, rx[:1])
+    ul4_frames = _ul_frames(dev, car, rx)
+    tracing.tracer.clear()
+    tracing.tracer.enabled = True
+
+    def dl_slot():
+        with tracing.tracer.span("dl compress + frame", "ofh"):
+            ru_dl.handle_dl_grid((0, 0, 0), grid)
+            sync()
+
+    def ul_slot():
+        with tracing.tracer.span("ul reassemble + decompress", "ofh"):
+            du = ofh.OfhSector(ofh.OfhSectorConfig(nof_prb=car.nof_prb,
+                                                   eaxc_ul=0),
+                               lambda f: None, device=dev)
+            for f in ul_frames:
+                du.handle_rx_frame(f)
+            sync()
+
+    def ul4_slot():
+        with tracing.tracer.span("ul 4 eAxCs reassemble + decompress",
+                                 "ofh"):
+            _du_receive(dev, car, ul4_frames, rx.shape[0])
+            sync()
+    bench = benchmark.Benchmarker(f"OFH {car.nof_prb} PRB, BFP w=9")
+    m_dl = bench.run("DL compress + frame", dl_slot, reps=FRONTHAUL_REPS)
+    m_ul = bench.run("UL reassemble + decompress", ul_slot,
+                     reps=FRONTHAUL_REPS)
+    m_ul4 = bench.run("UL 4 eAxCs reassemble + decompress", ul4_slot,
+                      reps=FRONTHAUL_REPS)
+    tracing.tracer.enabled = False
+    prof_dl = _profiled(dl_slot, 5, "slot")
+    prof_ul = _profiled(ul_slot, 5, "slot")
+    spans = {}
+    for e in tracing.tracer._events:
+        spans.setdefault(e["name"], []).append(e["dur"])
+    tracing.tracer.clear()
+    span_s = "; ".join(f"{k} {np.median(v[-FRONTHAUL_REPS:]):.1f} us "
+                       f"(median tracer span of the {FRONTHAUL_REPS} timed "
+                       f"slots)" for k, v in spans.items())
+    g3 = grid.reshape(14, car.nof_prb, 12)
+    wire = bfp.compress_slot(g3, 9)
+    pack_ms = _time_ms(lambda: bfp.compress_slot(g3, 9), 50, queued=True)
+    unpack_ms = _time_ms(lambda: bfp.decompress_slot(wire, 9), 50,
+                         queued=True)
+    snr = {w: (_snr_db(grid, bfp.decompress_slot(
+        bfp.compress_slot(g3, w), w).reshape(grid.shape)),
+        _snr_db(rx, bfp.decompress_slot(bfp.compress_slot(
+            rx.reshape(-1, 14, car.nof_prb, 12), w), w).reshape(rx.shape)))
+        for w in (9, 12, 14)}
+    frame_b = sum(len(f) for f in ul_frames)
+    return (f"{car.nof_prb} PRB, BFP w=9, per slot and eAxC: DL compress + "
+            f"frame p50 {m_dl.median_us:.1f} p90 {m_dl.percentile_us(90):.1f}"
+            f" us, UL reassemble + decompress p50 {m_ul.median_us:.1f} p90 "
+            f"{m_ul.percentile_us(90):.1f} us ({FRONTHAUL_REPS} slots each, "
+            f"synchronised); per slot, UL of {rx.shape[0]} eAxCs into "
+            f"{rx.shape[0]} DU-side sectors, every frame offered to each, "
+            f"reassemble + decompress p50 {m_ul4.median_us:.1f} p90 "
+            f"{m_ul4.percentile_us(90):.1f} us ({FRONTHAUL_REPS} slots, "
+            f"synchronised); {span_s}; device time of the slot's BFP pack "
+            f"{pack_ms * 1e3:.1f} us and unpack {unpack_ms * 1e3:.1f} us "
+            f"(queued); {len(ul_frames)} frames, {frame_b} B per slot and "
+            f"eAxC ({wire.numel()} B of compressed IQ, "
+            f"{grid.numel() * 8} B as complex64); BFP SNR DL/UL grid: "
+            + ", ".join(f"w={w} {a:.1f}/{b:.1f} dB"
+                        for w, (a, b) in snr.items())
+            + f"; torch.profiler over 5 DL slots: {prof_dl}; over 5 UL "
+            f"slots: {prof_ul} on {card}")
+
+
+def _socket_slot(dev, gen) -> str:
+    """Split 8 over the UDP virtual RF at SOCKET_PRB: one slot sent and
+    received whole, without a receiver thread, because the slot's datagrams
+    fit the receive buffer."""
+    cfg = ru.RuConfig(nof_prb=SOCKET_PRB, mu=1)
+    a, b = radio.create_radio("socket"), radio.create_radio("socket")
+    try:
+        a.peer = ("127.0.0.1", b.port)
+        rcvbuf = b._sock.getsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF)
+        tx = ru.RuGeneric(cfg, a, device=dev)
+        rx = ru.RuGeneric(cfg, b, device=dev)
+        got = []
+        rx.on_ul_grid = lambda ctx, g: got.append(g)
+        grid = torch.randn((2, 14, cfg.nof_prb * 12), generator=gen,
+                           device=dev)
+        grid = torch.complex(grid[0], grid[1])
+        tx.handle_dl_grid((0, 0, 0), grid)
+        nbytes = 8 * tx._ts
+        _check(nbytes < rcvbuf, f"socket slot {nbytes} B >= receive buffer "
+               f"{rcvbuf} B")
+        rx.trigger_ul_slot((0, 0, 0))
+    finally:
+        a.stop()
+        b.stop()
+    _check(len(got) == 1, "SocketRadio lost the slot")
+    err = float(((got[0] - grid).abs() ** 2).mean())
+    _check(err < 1e-6, f"SocketRadio slot error {err:.2e}")
+    return (f"SocketRadio at {SOCKET_PRB} PRB (nfft {cfg.nfft}): "
+            f"{tx._ts} samples, {nbytes} B of I/Q in "
+            f"{-(-tx._ts // radio.SocketRadio._CHUNK)} datagrams against a "
+            f"{rcvbuf}-B receive buffer, mean |error|^2 {err:.1e}")
+
+
+def phase_fronthaul(dev, card: str, car=None) -> dict:
+    """The FAPI carrier driven through SCF and carried over split 7.2 and
+    split 8, every LDPC launch tapped and held against its plain
+    version."""
+    car = car or fapi_carrier.default_carrier()
+    label = f"fronthaul {car.nof_prb}-PRB"
+    phy = upper_phy.UpperPhy(car.upper_phy, dev)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    rng = np.random.default_rng(22)
+    ru_cfg = ru.RuConfig(nof_prb=car.nof_prb, mu=car.mu)
+    _check(ru_cfg.nfft == car.nfft, f"RU nfft {ru_cfg.nfft} != {car.nfft}")
+
+    # ---- SCF: the carrier's slots as an SCF-speaking MAC builds them
+    sdl, data = fapi_carrier.scf_dl_request(car, 0,
+                                            np.random.default_rng(220))
+    dl = scf.dl_tti_to_processor_request(sdl)
+    ul = scf.ul_tti_to_processor_request(fapi_carrier.scf_ul_request(car, 1))
+    dl_native, _ = fapi_carrier.dl_request(car, 0, np.random.default_rng(220))
+    ul_native = fapi_carrier.ul_request(car, 1)
+    diffs = (fapi_carrier.request_differences(dl, dl_native)
+             + fapi_carrier.request_differences(ul, ul_native))
+    # the UEs send the preamble where the carrier has it: the translation
+    # reads no PRACH sub-carrier from the SCF PDU
+    ue_ul = dataclasses.replace(ul, prach_pdus=ul_native.prach_pdus)
+    pay = fapi_carrier.ul_payloads(ul, rng)
+
+    with _tapped_kernels() as sink:
+        _reset_counts()
+        # ---- DL over split 7.2
+        grid = phy.process_dl_slot(dl, data)
+        frames, rebuilt, ru_side = _ofh_dl(dev, car, grid)
+        dl_72 = _dl_verdicts(fapi_carrier.downlink(rebuilt, car, gen), dl,
+                             data)
+        # ---- UL over split 7.2, one eAxC per rx port
+        rx, prach_rx = fapi_carrier.uplink(ue_ul, pay, car, gen)
+        ul_frames, rx_72, du = _ofh_ul(dev, car, rx)
+        inds_72 = phy.process_ul_slot(rx_72, ul, slot_count=1,
+                                      prach_rx=prach_rx)
+        ul_72 = fapi_carrier.ul_checks(car, ul, pay, inds_72,
+                                       phy.last_ul_slot["pusch"])
+        # ---- split 8: RuGeneric over the in-memory radio, with AWGN (DL)
+        # and without (the UL grid), and over the TRX driver (DL)
+        outs = []
+        air = ru.RuGeneric(ru_cfg, radio.InMemoryRadio(
+            lambda bb: fapi_carrier.add_awgn(bb, car, car.snr_db, gen)),
+            device=dev)
+        air.on_ul_grid = lambda ctx, g: outs.append(g)
+        air.handle_dl_grid((0, 0, 0), grid)
+        air.trigger_ul_slot((0, 0, 0))
+        dl_8 = _dl_verdicts(outs[-1][None], dl, data)
+        wire8 = ru.RuGeneric(ru_cfg, radio.create_radio("loopback"),
+                             device=dev)
+        wire8.on_ul_grid = lambda ctx, g: outs.append(g)
+        wire8.handle_dl_grid((0, 1, 0), rx)
+        wire8.trigger_ul_slot((0, 1, 0))
+        inds_8 = phy.process_ul_slot(outs[-1], ul, slot_count=2,
+                                     prach_rx=prach_rx)
+        ul_8 = fapi_carrier.ul_checks(car, ul, pay, inds_8,
+                                      phy.last_ul_slot["pusch"])
+        trx_rng = np.random.default_rng(23)
+        sigma = fapi_carrier.noise_sigma(car, car.snr_db)
+        drv = trx_mod.TrxDriver(
+            numerology.sample_rate_hz(car.mu, car.nfft),
+            channel=lambda x: x + (sigma * (
+                trx_rng.standard_normal(x.shape)
+                + 1j * trx_rng.standard_normal(x.shape))).astype(
+                    np.complex64))
+        drv.start()
+        trx_ru = ru.RuGeneric(ru_cfg, _TrxSession(
+            drv, numerology.slot_num_samples(car.mu, car.nfft)),
+            device=dev)
+        trx_ru.on_ul_grid = lambda ctx, g: outs.append(g)
+        trx_ru.handle_dl_grid((0, 0, 0), grid)
+        trx_ru.trigger_ul_slot((0, 0, 0))
+        drv.stop()
+        res = sch.pusch_receive(outs[-1][None, None], dl.pdsch_pdus[0].config)
+        dl_trx = bool(res.tb_crc_ok[0]) and np.array_equal(
+            res.tb_bits[0].cpu().numpy(), data.transport_blocks[0])
+        torch.cuda.synchronize()
+        launches = _kernel_counts()
+    _check(launches["encoder"] > 0 and launches["decoder"] > 0
+           and sum(launches.values()) == len(sink.eager),
+           f"{label}: launches {launches}, {len(sink.eager)} tapped calls")
+
+    # ---- the verdicts
+    _check(len(frames) == 1 + 14 * -(-car.nof_prb // 255)
+           and ru_side.rx_no_cplane == 0, f"{label}: {len(frames)} DL "
+           f"frames, rx_no_cplane {ru_side.rx_no_cplane}")
+    snr_dl, snr_ul = _snr_db(grid, rebuilt), _snr_db(rx, rx_72)
+    _check(snr_dl > 40 and snr_ul > 40, f"{label}: BFP w=9 SNR DL "
+           f"{snr_dl:.1f} dB, UL {snr_ul:.1f} dB")
+    _check(all(dl_72.values()), f"{label}: DL over split 7.2 {dl_72}")
+    _check(all(ul_72.values()), f"{label}: UL over split 7.2 {ul_72}")
+    _check([s.rx_filtered for s in du] == [len(ul_frames) * 3 // 4] * 4,
+           f"{label}: eAxC filter {[s.rx_filtered for s in du]}")
+    _check(all(dl_8.values()) and all(ul_8.values()) and dl_trx,
+           f"{label}: split 8 DL {dl_8}, UL {ul_8}, TRX PDSCH A {dl_trx}")
+    # the card's bytes are the CPU's: the slot's wire bytes at every width,
+    # the DL frames, and the UL grids the DU-side sectors rebuild
+    g3 = grid.reshape(14, car.nof_prb, 12)
+    for w in (9, 12, 14, 16):
+        _check(torch.equal(bfp.compress_slot(g3, w).cpu(),
+                           bfp.compress_slot(g3.cpu(), w)),
+               f"{label}: the card's BFP bytes at w={w} != the CPU's")
+    frames_cpu, _, _ = _ofh_dl(torch.device("cpu"), car, grid.cpu())
+    ul_cpu, rx_cpu, _ = _ofh_ul(torch.device("cpu"), car, rx.cpu())
+    _check(frames_cpu == frames and ul_cpu == ul_frames
+           and torch.equal(rx_cpu, rx_72.cpu()),
+           f"{label}: the card's frames or rebuilt UL grid != the CPU's")
+    times, counts = _app_launches(card, label, sink)
+    sock = _socket_slot(dev, gen)
+    perf = _fronthaul_times(dev, card, car, grid, rx)
+    print(f"[{label}] SCF-built slots translated by fapi.scf; what differs "
+          f"from the carrier's own requests: {'; '.join(diffs)}")
+    print(f"[{label}] split 7.2: DL {len(frames)} frames, BFP w=9 SNR "
+          f"{snr_dl:.1f} dB, UE after OFDM + AWGN {dl_72}; UL 4 eAxCs x "
+          f"{len(ul_frames) // 4} frames, SNR {snr_ul:.1f} dB, every DU-side "
+          f"sector filtered {du[0].rx_filtered} foreign frames, UpperPhy "
+          f"{ul_72}; the card's BFP bytes (w = 9, 12, 14, 16), DL frames and "
+          f"rebuilt UL grid equal the CPU's; split 8: RuGeneric over "
+          f"InMemoryRadio with AWGN, DL {dl_8}; over InMemoryRadio, the UL "
+          f"grid {ul_8}; over TrxDriver with AWGN, PDSCH A {dl_trx}; {sock}; "
+          f"launches {launches} on {card}")
+    print(f"[{label}] every launch bit-exact against its plain version; "
+          f"launches per shape: {counts}; "
+          + "; ".join(f"{_fmt(t)} x{t['launches']}" for t in times)
+          + f" on {card}")
+    print(f"[{label}] {perf}")
+    return {"launches": launches, "times": times}
+
+
 def _kernel_entry(name: str, kind: str, paths: list[dict],
                   max_err: float) -> dict:
     """One kernels-JSON entry: launches of every driven path (each counted
@@ -2063,7 +2428,8 @@ def main() -> None:
     phase_ops(dev, card)
     app = phase_app(dev, card)
     app_ta = phase_app_ta(dev, card)
-    paths = [s, m, u, v, h, lo, *scans, fs, acc, app, app_ta]
+    fh = phase_fronthaul(dev, card)
+    paths = [s, m, u, v, h, lo, *scans, fs, acc, app, app_ta, fh]
     print(json.dumps({"kernels": [
         _kernel_entry("ldpc_encoder", "encoder", paths, enc_err),
         _kernel_entry("ldpc_decoder", "decoder", paths,

@@ -32,6 +32,7 @@ import math
 import numpy as np
 import torch
 
+from ..fapi import builders, scf
 from ..fapi import messages as fapi
 from ..ops import prach as prach_ops
 from ..phy.lower import ofdm
@@ -195,6 +196,180 @@ def ul_request(car: FapiCarrier, slot: int, full: bool = True,
         pucch_pdus=[f1, fapi.PucchPdu(format2=_at_slot(car.pucch_f2, slot))])
 
 
+# ------------------------------------------------------- SCF-built requests
+def _code_rate_scf(cfg: sch.ShConfig) -> int:
+    return round(cfg.code_rate * 10240)       # R x 1024 x 10
+
+
+def _dmrs_ports(cfg: sch.ShConfig) -> int:
+    return (1 << cfg.nof_layers) - 1
+
+
+def _scf_pdsch(b: builders.DlTtiRequestBuilder, cfg: sch.ShConfig,
+               bwp_size: int) -> None:
+    vrb = (scf.VrbToPrbMappingType.INTERLEAVED_RB_SIZE2
+           if cfg.vrb_to_prb_interleaved
+           else scf.VrbToPrbMappingType.NON_INTERLEAVED)
+    (b.add_pdsch_pdu()
+      .set_basic_parameters(rnti=cfg.rnti)
+      .set_bwp_parameters(bwp_size=bwp_size, bwp_start=0)
+      .add_codeword(target_code_rate=_code_rate_scf(cfg),
+                    qam_mod_order=cfg.qm, mcs_index=0, mcs_table=0,
+                    rv_index=cfg.rv, tb_size_bytes=cfg.tbs // 8)
+      .set_codeword_information_parameters(nid_pdsch=cfg.nid,
+                                           num_layers=cfg.nof_layers)
+      .set_dmrs_parameters(
+          dmrs_symbol_mask=scf.symbols_to_dmrs_mask(cfg.dmrs_symbols),
+          dmrs_type=scf.DmrsCfgType.TYPE_1, scrambling_id=cfg.nid_dmrs,
+          nscid=cfg.n_scid,
+          num_cdm_grps_no_data=cfg.dmrs_cdm_groups_without_data,
+          dmrs_ports=_dmrs_ports(cfg))
+      .set_pdsch_allocation_in_frequency_type_1(
+          rb_start=cfg.prb_start, rb_size=cfg.nof_prb, vrb_to_prb=vrb)
+      .set_pdsch_allocation_in_time_parameters(cfg.first_symbol,
+                                               cfg.nof_symbols))
+
+
+def _scf_pdcch(cfgs, payloads) -> scf.DlPdcchPdu:
+    """One CORESET PDU carrying a DCI per config (the CORESET fields are
+    the first config's)."""
+    c = cfgs[0]
+    return scf.DlPdcchPdu(
+        coreset_bwp_size=c.coreset_nof_prb,
+        coreset_bwp_start=c.coreset_start_prb,
+        start_symbol_index=c.start_symbol, duration_symbols=c.nof_symbols,
+        cce_reg_mapping_type=(scf.CceToRegMappingType.INTERLEAVED
+                              if c.interleaved
+                              else scf.CceToRegMappingType.NON_INTERLEAVED),
+        interleaver_size=c.interleaver_rows, shift_index=c.shift,
+        dl_dci=[scf.DlDciPdu(
+            rnti=d.rnti, nid_pdcch_data=d.n_id, nrnti_pdcch_data=d.n_rnti,
+            cce_index=d.cce_index, aggregation_level=d.aggregation_level,
+            payload=np.packbits(bits.astype(np.uint8)).tobytes(),
+            payload_size_bits=d.payload_size)
+            for d, bits in zip(cfgs, payloads)])
+
+
+def scf_dl_request(car: FapiCarrier, slot: int, rng: np.random.Generator):
+    """``dl_request``'s slot built as an SCF-speaking MAC builds it, with
+    ``fapi.builders`` (the same draws from rng): (ScfDlTtiRequest,
+    TX_Data.request).  The SSB PDU is the processor PDU, which
+    ``scf.dl_tti_to_processor_request`` passes through.  The CSI-RS is left
+    out: its RE lies in PDSCH A, whose reservation of it the translation
+    has no field for, so the CSI-RS would overwrite PDSCH A's data there."""
+    dcis = [rng.integers(0, 2, c.payload_size).astype(np.int8)
+            for c in (car.pdcch_dl, car.pdcch_ul)]
+    b = builders.DlTtiRequestBuilder(sfn=0, slot=slot)
+    b.add_pdcch_pdu(_scf_pdcch((car.pdcch_dl, car.pdcch_ul), dcis))
+    b.add_ssb_pdu(fapi.SsbPdu(car.ssb, rng.integers(0, 2, ssb.PBCH_A)
+                              .astype(np.int8), car.ssb_sc))
+    for c in (car.pdsch_a, car.pdsch_b):
+        _scf_pdsch(b, c, car.nof_prb)
+    req = b.build()
+    data = fapi.TxDataRequest(0, slot, [
+        rng.integers(0, 2, 8 * p.cws[0].tb_size_bytes).astype(np.int8)
+        for p in req.pdsch_pdus])
+    return req, data
+
+
+# HARQ-ACK bits of an SCF-built PUSCH B: the translation carries no ACK of
+# 1 or 2 bits (it sets only the reserved G), so the SCF slot sends 3, which
+# are rate-matched
+SCF_ACK_BITS = 3
+
+
+def _scf_pusch(b: builders.UlTtiRequestBuilder, cfg: sch.ShConfig,
+               nof_prb: int, pid: int) -> None:
+    p = (b.add_pusch_pdu()
+          .set_basic_parameters(rnti=cfg.rnti)
+          .set_bwp_parameters(bwp_size=nof_prb, bwp_start=0)
+          .set_information_parameters(
+              target_code_rate=_code_rate_scf(cfg), qam_mod_order=cfg.qm,
+              mcs_index=0, mcs_table=0, transform_precoding=False,
+              nid_pusch=cfg.nid, num_layers=cfg.nof_layers)
+          .set_dmrs_parameters(
+              dmrs_symbol_mask=scf.symbols_to_dmrs_mask(cfg.dmrs_symbols),
+              dmrs_type=scf.DmrsCfgType.TYPE_1, scrambling_id=cfg.nid_dmrs,
+              pusch_dmrs_identity=cfg.nid_dmrs, nscid=cfg.n_scid,
+              num_cdm_grps_no_data=cfg.dmrs_cdm_groups_without_data,
+              dmrs_ports=_dmrs_ports(cfg))
+          .set_allocation_in_frequency_type_1_parameters(
+              rb_start=cfg.prb_start, rb_size=cfg.nof_prb)
+          .set_allocation_in_time_parameters(cfg.first_symbol,
+                                             cfg.nof_symbols)
+          .add_optional_pusch_data(rv_index=cfg.rv, harq_process_id=pid,
+                                   new_data=True,
+                                   tb_size_bytes=cfg.tbs // 8))
+    if cfg.uci.any:
+        p.add_optional_pusch_uci(harq_ack_bits=SCF_ACK_BITS,
+                                 csi1_bits=cfg.uci.nof_csi_part1_bits)
+
+
+def scf_ul_request(car: FapiCarrier, slot: int, full: bool = True):
+    """``ul_request``'s slot built with ``fapi.builders``: the
+    ScfUlTtiRequest, new data on HARQ process slot % 8.  PUSCH B's UCI
+    carries ``SCF_ACK_BITS`` HARQ-ACK bits and the carrier's CSI part 1
+    bits, with the builder's beta offsets."""
+    pid = slot % 8
+    b = builders.UlTtiRequestBuilder(sfn=0, slot=slot)
+    if full:
+        _scf_pusch(b, car.pusch_a, car.nof_prb, pid)
+    _scf_pusch(b, car.pusch_b, car.nof_prb, pid)
+    f1 = car.pucch_f1
+    (b.add_pucch_pdu()
+      .set_basic_parameters(0x4602, scf.PucchFormatType.F1)
+      .set_allocation_in_frequency_parameters(prb_start=f1.prb)
+      .set_allocation_in_time_parameters(f1.start_symbol, f1.nof_symbols)
+      .set_format1_parameters(initial_cyclic_shift=f1.initial_cyclic_shift,
+                              time_domain_occ=f1.occ_index,
+                              nid_hopping=f1.n_id)
+      .set_uci_bit_lengths(harq_bits=f1.nof_harq_bits))
+    if full:
+        f2 = car.pucch_f2
+        (b.add_pucch_pdu()
+          .set_basic_parameters(f2.rnti, scf.PucchFormatType.F2)
+          .set_allocation_in_frequency_parameters(prb_start=f2.prb_start,
+                                                  prb_size=f2.nof_prb)
+          .set_allocation_in_time_parameters(f2.start_symbol,
+                                             f2.nof_symbols)
+          .set_uci_bit_lengths(harq_bits=0, csi1_bits=f2.nof_uci_bits)
+          .set_scrambling(nid_scrambling=f2.n_id, nid0_dmrs=f2.n_id0))
+        b.add_prach_pdu(scf.UlPrachPdu(
+            phys_cell_id=car.ssb.pci, prach_format=scf.PrachFormatType.A1,
+            num_cs=car.prach_ncs,
+            maintenance_v3_prach_res_config_index=car.prach_root,
+            maintenance_v3_num_preamble_indices=car.prach_nof_preambles))
+    return b.build()
+
+
+def request_differences(got, want) -> list[str]:
+    """Where two processor requests of one slot differ: one
+    "<PDU list>[i].<field>: got → want" entry per differing field of the
+    PDUs and their configs (the UCI of a PUSCH config field by field)."""
+    def fields(x, path):
+        if dataclasses.is_dataclass(x) and not isinstance(x, type):
+            for f in dataclasses.fields(x):
+                yield from fields(getattr(x, f.name), f"{path}.{f.name}")
+        else:
+            yield path, x
+
+    out = []
+    for name in ("ssb_pdus", "pdcch_pdus", "pdsch_pdus", "csi_rs_pdus",
+                 "prach_pdus", "pusch_pdus", "pucch_pdus"):
+        a, b = getattr(got, name, []), getattr(want, name, [])
+        if len(a) != len(b):
+            out.append(f"{name}: {len(a)} PDUs → {len(b)}")
+            continue
+        for i, (pa, pb) in enumerate(zip(a, b)):
+            for (path, va), (_, vb) in zip(fields(pa, f"{name}[{i}]"),
+                                           fields(pb, f"{name}[{i}]")):
+                same = (np.array_equal(va, vb)
+                        if isinstance(va, np.ndarray) else va == vb)
+                if not same:
+                    out.append(f"{path}: {va} → {vb}")
+    return out
+
+
 def ul_payloads(req: fapi.UlTtiRequest, rng: np.random.Generator) -> dict:
     """Random payloads of every UL PDU: per PUSCH (tb, ack, csi1), per PUCCH
     (F1 bits | None, F2 bits | None)."""
@@ -226,15 +401,27 @@ def channels(device: torch.device):
                  for h in (h4, *vecs))
 
 
+def noise_sigma(car: FapiCarrier, snr_db: float) -> float:
+    """Standard deviation of each of I and Q of the baseband noise that
+    gives a per-RE SNR of snr_db on unit-power REs after the nfft-point
+    OFDM demodulation."""
+    return math.sqrt(car.nfft) * 10 ** (-snr_db / 20) / math.sqrt(2.0)
+
+
+def add_awgn(bb: torch.Tensor, car: FapiCarrier, snr_db: float,
+             generator: torch.Generator) -> torch.Tensor:
+    """Baseband plus complex AWGN at a per-RE SNR, drawn on bb's device."""
+    nz = torch.randn((2, *bb.shape), generator=generator, device=bb.device,
+                     dtype=torch.float32) * noise_sigma(car, snr_db)
+    return bb + torch.complex(nz[0], nz[1])
+
+
 def _awgn_ofdm(grid: torch.Tensor, car: FapiCarrier, snr_db: float,
                generator: torch.Generator) -> torch.Tensor:
     """[ports, 14, nsc] → OFDM → AWGN at a per-RE SNR → demodulated grid."""
     bb = ofdm.modulate_slot(grid, car.mu, car.nfft)
-    sigma = math.sqrt(car.nfft) * 10 ** (-snr_db / 20) / math.sqrt(2.0)
-    nz = torch.randn((2, *bb.shape), generator=generator,
-                     device=generator.device, dtype=torch.float32) * sigma
-    return ofdm.demodulate_slot(bb + torch.complex(nz[0], nz[1]), car.nsc,
-                                car.mu, car.nfft)
+    return ofdm.demodulate_slot(add_awgn(bb, car, snr_db, generator),
+                                car.nsc, car.mu, car.nfft)
 
 
 def downlink(grid: torch.Tensor, car: FapiCarrier, generator: torch.Generator,

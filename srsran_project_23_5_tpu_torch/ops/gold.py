@@ -2,13 +2,15 @@
 
 Re-hosts the host side of ``srsran_project_23_5_tpu/ops/gold.py``: the x1
 sequence and the x2 basis-response matrix M2 (grown lazily with a vectorised
-LFSR), and ``gold_sequence_np``.  The slice bakes its scrambling sequences
-and DM-RS pilots on the host from these (they are pure configuration), so no
-device-side Gold product is needed.
+LFSR), ``gold_sequence_np`` and the device product ``gold_sequence``.  The
+slice bakes its scrambling sequences and DM-RS pilots on the host from these
+(they are pure configuration); ``gold_sequence`` computes a batch of them
+where the c_init values live on the device.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..ran.constants import GOLD_NC
 
@@ -66,3 +68,19 @@ def gold_sequence_np(cinit: int, length: int, offset: int = 0) -> np.ndarray:
     bits = ((np.uint32(cinit) >> np.arange(_STATE, dtype=np.uint32)) & 1)
     return (x1 ^ (bits.astype(np.int64) @ m2.astype(np.int64) % 2)
             ).astype(np.uint8)
+
+
+def gold_sequence(cinit: torch.Tensor, length: int, offset: int = 0
+                  ) -> torch.Tensor:
+    """Device Gold sequence: cinit [...] integer → [..., length] int8 {0,1}
+    on cinit's device, c = X1 xor (cinit bits @ M2) mod 2.  The product runs
+    in float32: its terms are 0 or 1 and its sums at most 31, so every value
+    is exact."""
+    x1, m2 = gold_tables(length, offset)
+    dev = cinit.device
+    shifts = torch.arange(_STATE, dtype=torch.int64, device=dev)
+    bits = ((cinit.to(torch.int64)[..., None] >> shifts) & 1).to(
+        torch.float32)
+    acc = bits @ torch.from_numpy(m2.astype(np.float32)).to(dev)
+    return ((acc.to(torch.int32) & 1)
+            ^ torch.from_numpy(x1.astype(np.int32)).to(dev)).to(torch.int8)

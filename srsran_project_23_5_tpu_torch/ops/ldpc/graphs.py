@@ -42,6 +42,10 @@ class LiftedGraph:
     row_cols: tuple[tuple[int, ...], ...]    # columns with an edge, per row
     row_shifts: tuple[tuple[int, ...], ...]  # cyclic shift per edge (mod Zc)
 
+    @property
+    def nof_edges(self) -> int:
+        return sum(len(c) for c in self.row_cols)
+
 
 @functools.lru_cache(maxsize=64)
 def lifted_graph(base_graph: int, lifting_size: int) -> LiftedGraph:

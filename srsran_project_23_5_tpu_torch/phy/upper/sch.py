@@ -170,6 +170,10 @@ class ShConfig:
     def scrambling_cinit(self) -> int:
         return ((self.rnti << 15) + self.nid) % (1 << 31)
 
+    @functools.cached_property
+    def dmrs_sc_indices(self) -> np.ndarray:
+        return dmrs.type1_sc_indices(self.prb_start, self.nof_prb, delta=0)
+
     def dmrs_cinit(self, symbol: int) -> int:
         return dmrs.dmrs_cinit(self.slot_in_frame, symbol, self.nid_dmrs,
                                self.n_scid)

@@ -293,7 +293,7 @@ def encode_uci_field(bits: torch.Tensor, o_bits: int, g: int,
     else:
         return short_block.encode(bits, g, qm)
     reps = -(-g // block.shape[-1])
-    return torch.cat([block] * reps, dim=-1)[:, :g]
+    return block.repeat(1, reps)[:, :g]
 
 
 @functools.lru_cache(maxsize=8)

@@ -47,6 +47,10 @@ class SegmentParams:
     cb_crc_bits: int        # 24 (CRC24B) when C > 1, else 0
     full_codeblock_length: int  # N = 66*Zc or 50*Zc
 
+    @property
+    def nof_message_blocks(self) -> int:
+        return LDPC_BG1_K if self.base_graph == 1 else LDPC_BG2_K
+
 
 def segment_tb(tbs: int, bg: int) -> SegmentParams:
     """Segmentation geometry for a transport block of `tbs` bits."""

@@ -28,6 +28,10 @@ def slots_per_frame(mu: int) -> int:
     return 10 << mu
 
 
+def slot_duration_s(mu: int) -> float:
+    return 1e-3 / slots_per_subframe(mu)
+
+
 def sample_rate_hz(mu: int, nfft: int) -> float:
     return scs_khz(mu) * 1e3 * nfft
 
@@ -73,6 +77,10 @@ class SlotPoint:
     @property
     def slot_in_subframe(self) -> int:
         return self.slot_in_frame % slots_per_subframe(self.mu)
+
+    @property
+    def subframe(self) -> int:
+        return self.slot_in_frame // slots_per_subframe(self.mu)
 
     def count(self) -> int:
         """Monotonic slot count within the 1024-frame period."""

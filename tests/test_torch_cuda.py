@@ -560,3 +560,45 @@ def test_gnb_app_loopback_on_card(cuda, monkeypatch):
         want = want if isinstance(want, tuple) else (want,)
         assert all(torch.equal(a, b) for a, b in zip(outs, want)), (
             name, tuple(x.shape), args, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [9, 12, 14, 16])
+def test_bfp_slot_bytes_on_the_card_equal_the_cpu(cuda, width):
+    """The slot-level BFP pack and unpack give on the card the bytes and
+    IQ they give on the CPU (273 PRB, 4 ports at once)."""
+    from srsran_project_23_5_tpu_torch.ofh import compression
+    gen = torch.Generator(device=cuda).manual_seed(width)
+    g = torch.randn((2, 4, 14, 273, 12), generator=gen, device=cuda) * 0.3
+    iq = torch.complex(g[0], g[1])
+    wire = compression.compress_slot(iq, width)
+    assert torch.equal(wire.cpu(), compression.compress_slot(iq.cpu(),
+                                                             width))
+    assert torch.equal(compression.decompress_slot(wire, width).cpu(),
+                       compression.decompress_slot(wire.cpu(), width))
+
+
+@pytest.mark.cuda
+def test_ofh_sector_slot_on_the_card_equals_the_cpu(cuda):
+    """A 273-PRB slot through a sector pair on the card: the frames and the
+    rebuilt grid equal those of a pair on the CPU, every PRB arrives."""
+    from srsran_project_23_5_tpu_torch import ofh
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    g = torch.randn((2, 14, 273 * 12), generator=gen, device=cuda) * 0.2
+    grid = torch.complex(g[0], g[1])
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        frames, got = [], {}
+        tx = ofh.OfhSector(ofh.OfhSectorConfig(nof_prb=273), frames.append,
+                           device=dev)
+        rx = ofh.OfhSector(ofh.OfhSectorConfig(nof_prb=273, eaxc_ul=0),
+                           lambda f: None, device=dev)
+        rx.on_ul_slot = lambda key, grid_: got.update({key: grid_})
+        tx.transmit_dl_slot(1, 2, 3, grid.to(dev))
+        for f in frames:
+            rx.handle_rx_frame(f)
+        out[dev.type] = (frames, got[(1, 2, 3)], rx.rx_no_cplane)
+    assert out["cuda"][0] == out["cpu"][0] and len(out["cpu"][0]) == 29
+    assert out["cuda"][1].is_cuda
+    assert torch.equal(out["cuda"][1].cpu(), out["cpu"][1])
+    assert out["cuda"][2] == out["cpu"][2] == 0
