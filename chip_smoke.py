@@ -155,7 +155,27 @@ Phases, one line each:
    (synchronised, ``utils.benchmark`` percentiles, ``utils.tracing``
    spans), the device time of the slot's BFP pack and unpack, bytes per
    slot and eAxC, the BFP SNR at w = 9, 12, 14, and torch.profiler over
-   5 DL and 5 UL slots.
+   5 DL and 5 UL slots;
+23. scale-out — the carrier and slot meshes on ``torch.distributed``.
+   (a) NCCL, a world of one rank in this process (``launch.world_of_one``):
+   ``sharded_multi_carrier_step(make_mesh(1), default_carrier())`` over 8
+   carriers of the 273-PRB flagship (TBS 40984, BG2 Z=384, 11 CBs) at 20
+   dB, every carrier ok and within 1.5 dB, verdicts equal to
+   ``multi_carrier_step`` on the same inputs and SINRs within 1e-3 dB;
+   the halo on an axis of one shard is the slot's own tail; one 273-PRB
+   mixed carrier through ``entry.mixed_carrier_step``.  (b) gloo, two
+   spawned ranks that both use this card (NCCL cannot put two ranks on one
+   GPU): ``entry.dryrun_multichip(2)``, one 273-PRB mixed carrier per rank
+   verified in-program at 20 dB, ``global_verdict`` equal on both ranks;
+   (c) in the same ranks, the slot-sharded PRACH stream across the two
+   ranks at the short geometry of ``tests/test_slot_stream.py`` and at the
+   format-0 window at 122.88 MHz (110,976 samples against a 61,440-sample
+   slot, begun in the previous rank's slot): windows equal to the
+   unsharded demodulation within 1e-4 relative, the preamble detected on
+   every slot that has one.  Every LDPC launch of every rank is tapped and
+   bit-exact against its plain version on the card, each shape timed.
+   Printed: ms per carrier step at one and at two ranks (two ranks share
+   one card: not a scaling figure) and the halo's time.
 
 Every timed shape prints the kernel's device time, its bound (the larger
 of bytes over 3.35 TB/s and operations over 67 TFLOP/s) and the share of
@@ -180,7 +200,7 @@ import types
 import numpy as np
 import torch
 
-from srsran_project_23_5_tpu_torch import ofh, radio, ru
+from srsran_project_23_5_tpu_torch import entry, ofh, radio, ru
 from srsran_project_23_5_tpu_torch.apps import gnb as app_gnb
 from srsran_project_23_5_tpu_torch.fapi import messages as fapi
 from srsran_project_23_5_tpu_torch.fapi import scf, validators
@@ -191,6 +211,7 @@ from srsran_project_23_5_tpu_torch.ops import prach as prach_ops
 from srsran_project_23_5_tpu_torch.ops.ldpc import (decoder_cuda,
                                                     encoder_cuda, graphs,
                                                     segmentation)
+from srsran_project_23_5_tpu_torch.parallel import launch
 from srsran_project_23_5_tpu_torch.phy import pipeline
 from srsran_project_23_5_tpu_torch.phy.lower import (lower_phy, ofdm,
                                                      prach_demod)
@@ -199,7 +220,8 @@ from srsran_project_23_5_tpu_torch.phy.upper import (pdcch, sch,
                                                      upper_phy)
 from srsran_project_23_5_tpu_torch.radio import trx as trx_mod
 from srsran_project_23_5_tpu_torch.ran import numerology
-from srsran_project_23_5_tpu_torch.utils import benchmark, kernels, tracing
+from srsran_project_23_5_tpu_torch.utils import (benchmark, kernel_taps,
+                                                 kernels, tracing)
 
 FLAGSHIP_CBS = 88          # 8 slots x 11 codeblocks
 SLICE_BATCH = 8
@@ -1351,16 +1373,6 @@ SCAN_K = 8                      # bench.py's K
 SCAN_SHAPES = ((8, 10), (64, 4))  # (B, dispatches of the sustained window)
 
 
-def _kernel_counts() -> dict:
-    return {"encoder": encoder_cuda.encode.launches,
-            "decoder": decoder_cuda.decode.launches}
-
-
-def _reset_counts() -> None:
-    encoder_cuda.encode.launches = 0
-    decoder_cuda.decode.launches = 0
-
-
 def _replay_busy(pipe, batch, seed: int) -> tuple[str, float]:
     """One scan dispatch under torch.profiler: device busy share (kernel
     time over the host wall of the dispatch and its fetch), device ops per
@@ -1406,48 +1418,6 @@ def _replay_busy(pipe, batch, seed: int) -> tuple[str, float]:
             f"{span_us / n:.1f} us per slot)", busy_us / n)
 
 
-class _ModuleTap:
-    """Stands in for a kernel wrapper's module inside ``sch`` (the one
-    caller of both wrappers on the scan paths) or ``slot_programs`` (the
-    upper PHY's grouped PUSCH decode): its kernel function keeps a
-    copy of each call's tensors, in ``sink.graph`` while a CUDA graph is
-    being captured (the copies are captured too, so after each replay they
-    hold what that replay's kernel took and gave), else in ``sink.eager``.
-    Every other name is the module's own."""
-
-    def __init__(self, module, fn_name: str, sink) -> None:
-        self._module = module
-        fn = getattr(module, fn_name)
-
-        def call(x, *args, **kw):
-            out = fn(x, *args, **kw)
-            outs = out if isinstance(out, tuple) else (out,)
-            capturing = (torch.cuda.is_available()
-                         and torch.cuda.is_current_stream_capturing())
-            (sink.graph if capturing else sink.eager).append({
-                "fn": fn_name, "x": x.clone(), "args": args, "kw": kw,
-                "out": [o.clone() for o in outs]})
-            return out
-        setattr(self, fn_name, call)
-
-    def __getattr__(self, name: str):
-        return getattr(self._module, name)
-
-
-@contextlib.contextmanager
-def _tapped_kernels():
-    sink = types.SimpleNamespace(graph=[], eager=[])
-    saved = sch.encoder_cuda, sch.decoder_cuda, slot_programs.decoder_cuda
-    sch.encoder_cuda = _ModuleTap(encoder_cuda, "encode", sink)
-    sch.decoder_cuda = _ModuleTap(decoder_cuda, "decode", sink)
-    slot_programs.decoder_cuda = _ModuleTap(decoder_cuda, "decode", sink)
-    try:
-        yield sink
-    finally:
-        (sch.encoder_cuda, sch.decoder_cuda,
-         slot_programs.decoder_cuda) = saved
-
-
 def _call_shape(rec: dict) -> str:
     bg, zc = rec["args"][:2]
     n_used = rec["kw"].get("nof_used_blocks")
@@ -1465,7 +1435,7 @@ def _scan_kernels(card: str, label: str, pipe, batch,
     what the plain version gives on its inputs.  timed: the kernel and its
     plain version are also timed at each shape of the first batch."""
     k = pipe.config.scan_batches
-    with _tapped_kernels() as sink:
+    with kernel_taps.tapped_kernels() as sink:
         pipe.warmup_scan(batch)
         sink.eager.clear()
         noise = pipe.scan_noise(77)
@@ -1560,14 +1530,14 @@ def _scan_run(dev, card: str, label: str, pipe, batch, per_batch: tuple,
     _check(not loud_ok, f"{label}: a replay on ×100 noise still passed")
     # sustained: several dispatches, one fetch
     pipe.fetch_accumulated()
-    _reset_counts()
+    kernel_taps.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(dispatches):
         pipe.submit_scan(batch, 1000 + i * k)
     all_ok, mean, nslots = pipe.fetch_accumulated()
     wall = time.perf_counter() - t0
-    launches = _kernel_counts()
+    launches = kernel_taps.launch_counts()
     _check(all_ok and nslots == dispatches * k * b
            and abs(mean - snr) < sinr_tol,
            f"{label}: window ok {all_ok}, {nslots} slots, SINR {mean:.2f}")
@@ -1658,13 +1628,13 @@ def phase_accumulate(dev, card: str, cfg=None, b: int = SLICE_BATCH) -> dict:
     oks = np.concatenate([ok for ok, _ in res])
     sinrs = np.concatenate([s for _, s in res]).astype(np.float64)
     acc = pipe()
-    _reset_counts()
+    kernel_taps.reset_launch_counts()
     t0 = time.perf_counter()
     for _ in range(3):
         acc.submit_accumulated(payloads)
     ok, mean, n = acc.fetch_accumulated()
     wall = time.perf_counter() - t0
-    launches = _kernel_counts()
+    launches = kernel_taps.launch_counts()
     rel = abs(mean - sinrs.mean()) / abs(sinrs.mean())
     _check(ok == bool(oks.all()) and ok and n == 3 * b and rel <= 1e-6,
            f"accumulate ({ok}, {mean!r}, {n}) != drain ({bool(oks.all())}, "
@@ -1865,14 +1835,12 @@ def _app_launches(card: str, label: str, sink) -> tuple[list[dict], str]:
     """Every kernel launch of an app run against its plain version on the
     same inputs (bit for bit), then each distinct shape timed with its
     bound.  Returns (times, "shape xN, ..." launches per shape)."""
-    plain = {"encode": encoder_cuda.encode_plain,
-             "decode": decoder_cuda.decode_plain}
+    bad = kernel_taps.mismatches(sink.eager)
+    _check(not bad, f"{label}: launches " + ", ".join(
+        f"{i} ({sink.eager[i]['fn']} {_call_shape(sink.eager[i])})"
+        for i in bad) + " != plain")
     shapes: dict[str, list[dict]] = {}
-    for i, e in enumerate(sink.eager):
-        want = plain[e["fn"]](e["x"], *e["args"], **e["kw"])
-        want = want if isinstance(want, tuple) else (want,)
-        _check(all(torch.equal(a, b) for a, b in zip(e["out"], want)),
-               f"{label}: launch {i} ({e['fn']} {_call_shape(e)}) != plain")
+    for e in sink.eager:
         shapes.setdefault(f"{e['fn']}r {_call_shape(e)}", []).append(e)
     times = []
     for key, recs in sorted(shapes.items()):
@@ -1907,13 +1875,13 @@ def _app_run(dev, card: str, label: str, raw: dict) -> dict:
     gnb = app_gnb.Gnb(app_gnb.GnbConfig.from_dict(raw))
     _check(gnb._phy.device == dev, f"{label}: the app runs on "
            f"{gnb._phy.device}, not {dev}")
-    with _tapped_kernels() as sink, \
+    with kernel_taps.tapped_kernels() as sink, \
             _app_clock(gnb, torch.cuda.synchronize) as rec:
-        _reset_counts()
+        kernel_taps.reset_launch_counts()
         t0 = time.perf_counter()
         rep = gnb.run()
         wall = time.perf_counter() - t0
-        launches = _kernel_counts()
+        launches = kernel_taps.launch_counts()
     _check(launches["encoder"] > 0 and launches["decoder"] > 0
            and sum(launches.values()) == len(sink.eager),
            f"{label}: launches {launches}, {len(sink.eager)} tapped calls")
@@ -2272,8 +2240,8 @@ def phase_fronthaul(dev, card: str, car=None) -> dict:
     ue_ul = dataclasses.replace(ul, prach_pdus=ul_native.prach_pdus)
     pay = fapi_carrier.ul_payloads(ul, rng)
 
-    with _tapped_kernels() as sink:
-        _reset_counts()
+    with kernel_taps.tapped_kernels() as sink:
+        kernel_taps.reset_launch_counts()
         # ---- DL over split 7.2
         grid = phy.process_dl_slot(dl, data)
         frames, rebuilt, ru_side = _ofh_dl(dev, car, grid)
@@ -2325,7 +2293,7 @@ def phase_fronthaul(dev, card: str, car=None) -> dict:
         dl_trx = bool(res.tb_crc_ok[0]) and np.array_equal(
             res.tb_bits[0].cpu().numpy(), data.transport_blocks[0])
         torch.cuda.synchronize()
-        launches = _kernel_counts()
+        launches = kernel_taps.launch_counts()
     _check(launches["encoder"] > 0 and launches["decoder"] > 0
            and sum(launches.values()) == len(sink.eager),
            f"{label}: launches {launches}, {len(sink.eager)} tapped calls")
@@ -2375,6 +2343,101 @@ def phase_fronthaul(dev, card: str, car=None) -> dict:
           + f" on {card}")
     print(f"[{label}] {perf}")
     return {"launches": launches, "times": times}
+
+
+SCALE_OUT_CARRIERS = 8
+SCALE_OUT_HALO = 4096
+
+
+def _host_calls(dev, calls: list[dict]) -> list[dict]:
+    """Tapped calls a rank returned (on the host), back on the card."""
+    return [dict(c, x=c["x"].to(dev), out=[o.to(dev) for o in c["out"]])
+            for c in calls]
+
+
+def phase_scale_out(dev, card: str, car=None, mixed=None) -> dict:
+    """The flagship carrier step on NCCL at one rank, the mixed dry run on
+    gloo at two ranks sharing this card, and the slot-sharded PRACH stream
+    in the same two ranks; every LDPC launch tapped and held against its
+    plain version."""
+    car = car or gnb_flagship.default_carrier()
+    mixed = mixed or gnb_mixed.default_mixed()
+    c = SCALE_OUT_CARRIERS
+    gen = torch.Generator(device=dev).manual_seed(23)
+    tb = torch.randint(0, 2, (c, car.sh.tbs), generator=gen, device=dev,
+                       dtype=torch.int8)
+    sigma = float(np.sqrt(car.nfft) * 10 ** (-20.0 / 20))
+    nz = torch.randn((2, c, car.slot_samples), generator=gen, device=dev)
+    noise = torch.complex(nz[0], nz[1]) * (sigma / math.sqrt(2.0))
+    pay1 = gnb_mixed.make_payloads(mixed, np.random.default_rng(23), 1, dev)
+    x = torch.randn((1, mixed.slot_samples), generator=gen, device=dev)
+
+    # ---- (a) NCCL, a world of one rank
+    with launch.world_of_one("nccl", dev) as d:
+        a = entry.carrier_step_check(0, d, car, tb, noise)
+        a1 = entry.mixed_step_check(0, d, mixed, pay1, torch.arange(1))
+        halo = entry.mesh_report(0, d, x.cpu().numpy(), SCALE_OUT_HALO)
+    _check(bool(a["ok"].all()) and bool(
+        ((a["sinr"] - 20.0).abs() < 1.5).all()),
+        f"scale-out nccl x1: ok {a['ok'].tolist()}, sinr "
+        f"{a['sinr'].tolist()}")
+    _check(torch.equal(a["ok"], a["ok_ref"]) and float(
+        (a["sinr"] - a["sinr_ref"]).abs().max()) <= 1e-3,
+        f"scale-out nccl x1: sharded {a['sinr'].tolist()} != unsharded "
+        f"{a['sinr_ref'].tolist()}")
+    _check(torch.equal(halo["halo"], torch.cat(
+        [x[:, -SCALE_OUT_HALO:], x], dim=-1)),
+        "scale-out: the halo of one shard is not its own tail")
+    _check(bool(a1["ok"].all()) and a1["verdict"][0],
+           f"scale-out nccl x1: mixed carrier {a1['ok'].tolist()}")
+
+    # ---- (b) + (c) gloo, two spawned ranks on this card
+    torch.cuda.empty_cache()
+    geom = entry.format0_prach(mixed.mu, mixed.nfft)
+    _check(geom[:5] == (61440, 98304, 839, 12672, -55296),
+           f"format-0 geometry at 122.88 MHz: {geom}")
+    t0 = time.perf_counter()
+    ranks = entry.dryrun_multichip(2, backend="gloo", device=str(dev),
+                                   cfg=mixed)
+    spawn_s = time.perf_counter() - t0
+    b = [r[0] for r in ranks]
+    launches = dict(a["launches"])
+    for res in [a1, *b]:
+        _check(res["launches"] == {"encoder": 4, "decoder": 2}
+               and len(res["calls"]) == 6, f"scale-out: mixed carrier "
+               f"launches {res['launches']}, {len(res['calls'])} tapped")
+        for k in launches:
+            launches[k] += res["launches"][k]
+    _check(a["launches"] == {"encoder": 1, "decoder": 1},
+           f"scale-out nccl x1: flagship launches {a['launches']}")
+    times_a, counts_a = _app_launches(card, "scale-out nccl x1",
+                                      types.SimpleNamespace(
+                                          eager=a["calls"] + a1["calls"]))
+    times_b, counts_b = _app_launches(card, "scale-out gloo x2",
+                                      types.SimpleNamespace(eager=[
+                                          call for r in b for call in
+                                          _host_calls(dev, r["calls"])]))
+    print(f"[scale-out] (a) NCCL, 1 rank: flagship {c} carriers at "
+          f"{car.nof_prb} PRB all ok, SINR {float(a['sinr'].min()):.2f}-"
+          f"{float(a['sinr'].max()):.2f} dB, = multi_carrier_step (max "
+          f"|dSINR| {float((a['sinr'] - a['sinr_ref']).abs().max()):.1e} "
+          f"dB), {a['step_ms']:.2f} ms per step "
+          f"({a['step_ms'] / c:.2f} ms per carrier); mixed carrier "
+          f"{a1['step_ms']:.2f} ms per step; the halo of one shard is its "
+          f"own tail; launches {counts_a} on {card}")
+    print(f"[scale-out] (b) gloo, 2 ranks on one card ({dev}; NCCL cannot "
+          f"put two ranks on one GPU): mixed {mixed.nof_prb} PRB, 1 carrier "
+          f"per rank, ok {b[0]['ok'].tolist()}, SINR "
+          f"{[round(v, 2) for v in b[0]['sinr'].tolist()]} dB, "
+          f"global verdict {b[0]['verdict']} on both ranks; ms per carrier "
+          f"step per rank {[round(r['step_ms'], 2) for r in b]} (2 ranks "
+          f"share one card, not a scaling figure; 1 rank: "
+          f"{a1['step_ms']:.2f}); spawn + run {spawn_s:.1f} s; launches "
+          f"{counts_b} on {card}")
+    print(f"[scale-out] every launch bit-exact against its plain version; "
+          + "; ".join(f"{_fmt(t)} x{t['launches']}"
+                      for t in times_a + times_b) + f" on {card}")
+    return {"launches": launches, "times": times_a + times_b}
 
 
 def _kernel_entry(name: str, kind: str, paths: list[dict],
@@ -2429,7 +2492,8 @@ def main() -> None:
     app = phase_app(dev, card)
     app_ta = phase_app_ta(dev, card)
     fh = phase_fronthaul(dev, card)
-    paths = [s, m, u, v, h, lo, *scans, fs, acc, app, app_ta, fh]
+    so = phase_scale_out(dev, card)
+    paths = [s, m, u, v, h, lo, *scans, fs, acc, app, app_ta, fh, so]
     print(json.dumps({"kernels": [
         _kernel_entry("ldpc_encoder", "encoder", paths, enc_err),
         _kernel_entry("ldpc_decoder", "decoder", paths,

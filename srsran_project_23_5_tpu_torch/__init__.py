@@ -20,6 +20,13 @@ The two LDPC Pallas kernels of the JAX package are hand-written CUDA C++
 kernels for sm_90a (``csrc/``), built at first use by ``utils/kernels.py``.
 Their wrappers take the plain PyTorch version only for CPU tensors.
 
+Scale-out (``parallel/``, ``entry.py``) runs one process per rank under
+``torch.distributed`` where JAX runs one process over a device mesh: a
+rank slices the global carriers or slots to its own and gathers the
+results.  Every module of the JAX package has its counterpart here but
+for those that are not ported by design (TPU layout workarounds, the XLA
+cache and program store, the XLA decoder).
+
 The package imports torch and numpy, never JAX, and nothing of the JAX
 package: the numpy helpers it needs (``ran/``, LDPC tables, Gold tables, CRC
 remainder matrices, rate-match index maps) are re-hosted here.

@@ -4,8 +4,9 @@ Counterpart of ``srsran_project_23_5_tpu/models/gnb_flagship.py``.  For each
 slot of a batch a transport block is encoded onto a downlink grid,
 OFDM-modulated to baseband, passed through the channel (additive noise
 given by the caller), OFDM-demodulated and received through the full PUSCH
-chain.  The slot batch is the leading dimension of every tensor; the
-carrier-sharded steps of the JAX module are not ported.
+chain.  The slot batch is the leading dimension of every tensor; carriers
+batch along it too, and ``sharded_multi_carrier_step`` splits them over
+the ranks of a mesh (``parallel/mesh.py``).
 
 The default transport block is 40984 bits where the JAX module has 40976.
 Both are TS 38.214 §5.1.3.2 sizes for N'_info = 40960: 40976 for code rates
@@ -20,6 +21,7 @@ import dataclasses
 
 import torch
 
+from ..parallel import mesh as mesh_lib
 from ..phy.lower import ofdm
 from ..phy.upper import sch
 from ..ran import numerology
@@ -96,3 +98,28 @@ def loopback_slot(tb_bits: torch.Tensor, noise: torch.Tensor,
     ok, bits, sinr = loopback_batch(tb_bits[None], noise[None], cfg,
                                     nof_ldpc_iterations)
     return ok[0], bits[0], sinr[0]
+
+
+def multi_carrier_step(cfg: CarrierConfig, nof_ldpc_iterations: int = 6):
+    """The carrier-batched loopback step: ([C, A] bits, [C, slot_samples]
+    noise) → (ok [C], sinr [C]), the carriers one batch."""
+    def step(tb_batch: torch.Tensor, noise_batch: torch.Tensor):
+        ok, _, sinr = loopback_batch(tb_batch, noise_batch, cfg,
+                                     nof_ldpc_iterations)
+        return ok, sinr
+    return step
+
+
+def sharded_multi_carrier_step(mesh, cfg: CarrierConfig,
+                               nof_ldpc_iterations: int = 6):
+    """The multi-carrier step with the carrier axis split over `mesh`: every
+    rank takes the global ([C, A], [C, slot_samples]) inputs, runs
+    ``loopback_batch`` on its C / shards carriers on its own device and
+    gathers the global (ok [C], sinr [C])."""
+    shard = mesh_lib.carrier_sharding(mesh)
+    step = multi_carrier_step(cfg, nof_ldpc_iterations)
+
+    def sharded(tb_batch: torch.Tensor, noise_batch: torch.Tensor):
+        ok, sinr = step(shard.local(tb_batch), shard.local(noise_batch))
+        return shard.gather(ok), shard.gather(sinr)
+    return sharded

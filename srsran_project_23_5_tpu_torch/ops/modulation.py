@@ -15,6 +15,8 @@ import torch
 
 from ..ran.constants import LLR_MAX
 
+#: modulation scheme → bits per symbol
+QM = {"BPSK": 1, "QPSK": 2, "QAM16": 4, "QAM64": 6, "QAM256": 8}
 _NORM = {2: np.sqrt(2.0), 4: np.sqrt(10.0), 6: np.sqrt(42.0),
          8: np.sqrt(170.0)}
 

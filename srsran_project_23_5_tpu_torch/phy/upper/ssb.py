@@ -27,6 +27,7 @@ SSB_NSC = 240
 PBCH_A = 32          # payload bits (24 MIB + 8 timing)
 PBCH_K = 56          # A + CRC24
 PBCH_E = 864
+PBCH_NSYM = 432      # QPSK symbols
 
 # TS 38.212 Table 7.1.1-1: PBCH payload interleaver pattern G(j).
 _G = (16, 23, 18, 17, 8, 30, 10, 6, 24, 7, 0, 5, 3, 2, 1, 4,

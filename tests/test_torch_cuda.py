@@ -11,12 +11,14 @@ import numpy as np
 import pytest
 import torch
 
+from srsran_project_23_5_tpu_torch import entry
 from srsran_project_23_5_tpu_torch.fapi import messages as fapi
 from srsran_project_23_5_tpu_torch.models import (fapi_carrier, gnb_flagship,
                                                   gnb_mixed)
 from srsran_project_23_5_tpu_torch.ops.ldpc import (decoder_cuda,
                                                     encoder_cuda, graphs)
 from srsran_project_23_5_tpu_torch.ops import prach
+from srsran_project_23_5_tpu_torch.parallel import launch
 from srsran_project_23_5_tpu_torch.phy import pipeline
 from srsran_project_23_5_tpu_torch.phy.lower import lower_phy, prach_demod
 from srsran_project_23_5_tpu_torch.phy.upper import (pdcch, slot_programs, ssb,
@@ -602,3 +604,35 @@ def test_ofh_sector_slot_on_the_card_equals_the_cpu(cuda):
     assert out["cuda"][1].is_cuda
     assert torch.equal(out["cuda"][1].cpu(), out["cpu"][1])
     assert out["cuda"][2] == out["cpu"][2] == 0
+
+
+@pytest.mark.cuda
+def test_sharded_flagship_nccl_world_of_one(cuda):
+    """The carrier-sharded flagship step on a one-rank NCCL world equals the
+    unsharded step; one launch of each kernel, bit-exact."""
+    car = gnb_flagship.tiny_carrier()
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    tb = torch.randint(0, 2, (4, car.sh.tbs), generator=gen, device=cuda,
+                       dtype=torch.int8)
+    sigma = float(np.sqrt(car.nfft) * 10 ** (-25.0 / 20))
+    nz = torch.randn((2, 4, car.slot_samples), generator=gen, device=cuda)
+    noise = torch.complex(nz[0], nz[1]) * (sigma / np.sqrt(2.0))
+    with launch.world_of_one("nccl", cuda) as dev:
+        res = entry.carrier_step_check(0, dev, car, tb, noise, 4)
+    assert res["ok"].all() and torch.equal(res["ok"], res["ok_ref"])
+    assert float((res["sinr"] - res["sinr_ref"]).abs().max()) <= 1e-3
+    assert res["launches"] == {"encoder": 1, "decoder": 1}
+    assert len(res["calls"]) == 2 and res["mismatches"] == []
+
+
+@pytest.mark.cuda
+def test_dryrun_two_gloo_ranks_share_the_card(cuda):
+    """Two spawned gloo ranks on cuda:0 run one tiny mixed carrier each and
+    the slot-sharded PRACH stream; each rank launched 4 encodes and 2
+    decodes, every one bit-exact."""
+    ranks = entry.dryrun_multichip(2, backend="gloo", device="cuda:0",
+                                   cfg=gnb_mixed.tiny_mixed())
+    for mixed, short, long_ in ranks:
+        assert mixed["launches"] == {"encoder": 4, "decoder": 2}
+        assert len(mixed["calls"]) == 6 and mixed["mismatches"] == []
+        assert short["rel_err"] <= 1e-4 and long_["rel_err"] <= 1e-4

@@ -233,11 +233,12 @@ def test_port_imports_no_jax():
 @pytest.mark.parametrize("entry", ["SlotPipeline", "UpperPhy",
                                    "make_payloads", "harq_retx_batch",
                                    "LowerPhy", "AsyncLowerPhy", "apps.gnb",
-                                   "apps.phy_loop"])
+                                   "apps.phy_loop", "entry"])
 def test_entry_points_default_to_the_card(entry, monkeypatch):
     """Without a device argument the entry points run on the current CUDA
     device; where there is none they raise instead of falling back to the
     CPU.  device="cpu" still runs the plain versions."""
+    from srsran_project_23_5_tpu_torch import entry as tentry
     from srsran_project_23_5_tpu_torch.apps import gnb as tgnb
     from srsran_project_23_5_tpu_torch.apps import phy_loop as tphy_loop
     from srsran_project_23_5_tpu_torch.models import gnb_mixed as tmixed
@@ -278,6 +279,7 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
         ))._phy.device,
         "apps.phy_loop": lambda **kw: tphy_loop.PhyLoop(
             CellConfig(nof_prb=24), **kw).device,
+        "entry": lambda **kw: tentry.entry(tiny, **kw)[1][0].device,
     }
     assert calls[entry](device="cpu") == torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
