@@ -42,23 +42,32 @@ Phases, one line each:
 9. mixed-profile — torch.profiler over two mixed batches, and over the
    once-per-batch DCI re-check alone (its device op count);
 10. upper-phy — ``UpperPhy`` (FAPI DL_TTI/UL_TTI → grids → indications) on
-   the 273-PRB carrier of ``models/fapi_carrier.py``, 4 rx ports, 20 dB:
-   8 DL slots (SSB, 2×PDCCH, 2×PDSCH, CSI-RS; one slot a VRB-interleaved
-   PDSCH over the BWP), each grid equal to the CPU's on two slots and each
-   PDSCH passing ``symbol_verify`` after OFDM and AWGN; 8 UL slots rotating
-   two mixes (4-layer PUSCH, PUSCH with UCI and time interpolation, PUCCH
-   F1 and F2, a multi-root PRACH; or PUSCH B and F1): every CRC, payload,
-   UCI bit, preamble and TA recovered, PUSCH B's SINR within 1 dB of 20,
-   one decoder launch per decode group, the first slot equal to the CPU's,
-   and the kernel equal to ``decode_plain`` on the LLRs each decode group
-   of that slot handed it (BG1 Z=384 x34 n_used 35, x8 n_used 33);
-   a HARQ pair at 14 dB (rv=0 fails, rv=2 combined on the full BG1 graph at
-   Z=384 passes and releases the softbuffer); three programs for the two
-   mixes and the retransmission; ms per DL and UL slot, and the
-   full-graph decoder against ``decode_plain`` and the truncated graph
-   (both checked against ``decode_plain`` first), and its phase split;
+   the 273-PRB carrier of ``models/fapi_carrier.py``, 4 rx ports, 20 dB,
+   each slot one replay of its signature's captured CUDA graph
+   (``utils/graphs.py``): 8 DL slots (SSB, 2×PDCCH, 2×PDSCH, CSI-RS; one
+   slot a VRB-interleaved PDSCH over the BWP), each grid equal to the
+   CPU's on two slots and each PDSCH passing ``symbol_verify`` after OFDM
+   and AWGN; 8 UL slots rotating two mixes (4-layer PUSCH, PUSCH with UCI
+   and time interpolation, PUCCH F1 and F2, a multi-root PRACH; or PUSCH B
+   and F1): every CRC, payload, UCI bit, preamble and TA recovered, PUSCH
+   B's SINR within 1 dB of 20, one decoder launch per decode group and
+   replay (and the eager warm-up's where a slot captured), the first slot
+   equal to the CPU's, and the kernel equal to ``decode_plain`` on the
+   LLRs each decode group of that slot handed it (BG1 Z=384 x34 n_used 35,
+   x8 n_used 33); two HARQ pairs at 14 dB (rv=0 fails, rv=2 combined on
+   the full BG1 graph at Z=384 passes and releases the softbuffer; the
+   second pair replays the first's graphs); every DL and UL slot's replay
+   equal to its program's eager run on the same inputs (bits and verdicts
+   exact, floats within 1e-5 of max|ref|); three UL programs for the two
+   mixes and the retransmission, one capture per DL and UL signature;
+   captures, capture seconds, pool bytes, launches per replay; ms per DL
+   and UL slot (median, p90) and the programs alone, replay against eager
+   body; the full-graph decoder against ``decode_plain`` and the truncated
+   graph (both checked against ``decode_plain`` first), and its phase
+   split;
 11. upper-profile — torch.profiler over two DL slots and two full-mix UL
-   slots of the upper PHY;
+   slots of the upper PHY, and over one replay and one eager run of the
+   DL and the full-mix UL program;
 12. mixed-variants — the 273-PRB mixed slot's options through
    ``SlotPipeline``, 8 slots per batch: the TDL channel (``tdl_channel``
    at 30 dB; its verdicts at 20 dB are printed, not gated),
@@ -128,7 +137,11 @@ Phases, one line each:
    host stack, the gNB DL and UL PHY, OFDM + AWGN, the UE's DL side and
    its UL build; the device busy share of 20 slots under torch.profiler;
    the same run on the CPU gives the same report (but its wall clock) and
-   the same uplink indications slot by slot;
+   the same uplink indications slot by slot.  The gNB's ``UpperPhy`` and
+   the UE modem (CSI-RS SINR, blind DCI decode, PDSCH receive, PUSCH and
+   PUCCH F1/F2 transmit) run as captured programs: their captures,
+   capture seconds, replays and pool bytes are printed, and every launch
+   of a replay is tapped and held against plain like the eager ones;
 21. app-ta — the timing-advance closed loop of the JAX slow test
    ``test_gnb_app_ta_closed_loop`` at 273 PRB (FDD, 200 slots, 28 dB, a
    UE timing error of 12 samples): the UE attaches and its TA ends within
@@ -822,28 +835,135 @@ def _same_indications(got: list, want: list, sinr_tol: float) -> bool:
     return True
 
 
+def _tree_leaves(tree, path: str = ""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _tree_leaves(v, f"{path}.{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _tree_leaves(v, f"{path}[{i}]")
+    elif tree is not None:
+        yield path, tree
+
+
+def _tree_diffs(got, want) -> list[str]:
+    """Where two output trees differ: bits, flags and indices in any
+    element, floats by more than 1e-5 of max|want|."""
+    a, b = list(_tree_leaves(got)), list(_tree_leaves(want))
+    if [p for p, _ in a] != [p for p, _ in b]:
+        return ["the trees differ in shape"]
+    bad = []
+    for (path, x), (_, y) in zip(a, b):
+        if x.shape != y.shape or x.dtype != y.dtype:
+            bad.append(f"{path}: {x.dtype}{list(x.shape)} vs "
+                       f"{y.dtype}{list(y.shape)}")
+        elif x.dtype.is_floating_point or x.dtype.is_complex:
+            ref = float(y.abs().max()) if y.numel() else 0.0
+            err = float((x - y).abs().max()) if y.numel() else 0.0
+            if err > 1e-5 * ref:
+                bad.append(f"{path}: {err:.3e} of max|ref| {ref:.3e}")
+        elif not torch.equal(x, y):
+            bad.append(f"{path}: differs")
+    return bad
+
+
+@contextlib.contextmanager
+def _uncounted():
+    """Kernel launches inside the block (comparisons, timings) leave the
+    launch counts as they were."""
+    saved = kernel_taps.launch_counts()
+    try:
+        yield
+    finally:
+        encoder_cuda.encode.launches = saved["encoder"]
+        decoder_cuda.decode.launches = saved["decoder"]
+
+
+def _replay_vs_eager(label: str, prog, got=None) -> None:
+    """The last replay of a captured program (its outputs, or `got`, a copy
+    of them) against the program's body run eagerly on the same inputs."""
+    with _uncounted():
+        want = prog.eager(*prog.inputs)
+    bad = _tree_diffs(prog.out if got is None else got, want)
+    _check(not bad, f"{label}: replay != eager: {'; '.join(bad[:6])}")
+
+
+def _program_ms(prog, reps: int) -> tuple[list[float], list[float]]:
+    """Host ms (after synchronize) of ``reps`` replays and ``reps`` eager
+    runs of a program on its last inputs, in turns."""
+    inputs = prog.inputs
+    replay, eager = [], []
+    with _uncounted():
+        for _ in range(reps):
+            for fn, out in ((lambda: prog(*inputs), replay),
+                            (lambda: prog.eager(*inputs), eager)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                out.append((time.perf_counter() - t0) * 1e3)
+    return replay, eager
+
+
+def _ms(xs) -> str:
+    return f"median {np.median(xs):.2f} p90 {np.percentile(xs, 90):.2f}"
+
+
 def phase_upper_phy(dev, card: str) -> dict:
-    """UpperPhy on the 273-PRB FAPI carrier: DL and UL slots, a HARQ pair
-    through the full BG1 graph, the program cache."""
+    """UpperPhy on the 273-PRB FAPI carrier: DL and UL slots, two HARQ
+    pairs through the full BG1 graph, the programs as captured graphs, each
+    replay held against the program's eager run on the same inputs."""
     car = fapi_carrier.default_carrier()
     phy = upper_phy.UpperPhy(car.upper_phy, dev)
     phy_cpu = upper_phy.UpperPhy(car.upper_phy, "cpu")
     gen = torch.Generator(device=dev).manual_seed(8)
     rng = np.random.default_rng(8)
     gate = gnb_mixed.symbol_gate(car.pdsch_a.qm, car.snr_db)
-    ul_reqs, dl_ms, ul_ms, matches, sinr_b = [], [], [], [], []
+    ul_reqs, dl_reqs, matches, sinr_b = [], [], [], []
+    dl_ms, ul_ms = {True: [], False: []}, {True: [], False: []}
     decode_grouped, group_inputs = slot_programs._decode_grouped, []
+
+    def ul_slot(rx, req, slot_count, prach_rx=None):
+        """One UL slot: its decoder launches (one per decode group and
+        replay, the warm-up's on a capture) and its replay vs eager."""
+        groups = slot_programs.decode_groups(
+            slot_programs.signature(req)[0])
+        d0, c0 = decoder_cuda.decode.launches, phy.graphs.captures
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inds = phy.process_ul_slot(rx, req, slot_count=slot_count,
+                                   prach_rx=prach_rx)
+        torch.cuda.synchronize()
+        new = phy.graphs.captures - c0
+        ul_ms[bool(new)].append((time.perf_counter() - t0) * 1e3)
+        prog = phy.ul_programs.get(slot_programs.signature(
+            req if prach_rx is not None else dataclasses.replace(
+                req, prach_pdus=[]))).program
+        _check(prog.captured_launches == (0, len(groups))
+               and decoder_cuda.decode.launches - d0
+               == len(groups) * (1 + new),
+               f"UL slot {slot_count}: {decoder_cuda.decode.launches - d0} "
+               f"decoder launches ({new} captures), {prog.captured_launches}"
+               f" per replay, for {len(groups)} decode groups")
+        _replay_vs_eager(f"UL slot {slot_count}", prog)
+        ul_reqs.append(req)
+        return inds
 
     encoder_cuda.encode.launches = 0
     decoder_cuda.decode.launches = 0
     for slot in range(UPPER_SLOTS):
         # ---- downlink
         req, data = fapi_carrier.dl_request(car, slot, rng, vrb=slot == 5)
+        c0 = phy.graphs.captures
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         grid = phy.process_dl_slot(req, data)
         torch.cuda.synchronize()
-        dl_ms.append((time.perf_counter() - t0) * 1e3)
+        dl_ms[phy.graphs.captures > c0].append((time.perf_counter() - t0)
+                                              * 1e3)
+        dl_reqs.append(req)
+        _replay_vs_eager(f"DL slot {slot}", phy.dl_programs.get(
+            slot_programs.dl_signature(req)).program, grid)
         if slot in (0, 5):
             want = phy_cpu.process_dl_slot(req, data)
             err = float((grid.cpu() - want).abs().max() / want.abs().max())
@@ -859,31 +979,24 @@ def phase_upper_phy(dev, card: str) -> dict:
         ul = fapi_carrier.ul_request(car, slot, full=slot % 2 == 0)
         pay = fapi_carrier.ul_payloads(ul, rng)
         rx, prach_rx = fapi_carrier.uplink(ul, pay, car, gen)
-        groups = slot_programs.decode_groups(
-            slot_programs.signature(ul)[0])
         if slot == 0:
-            # keep what each decode group hands the decoder, to hold the
-            # kernel against decode_plain on those very inputs afterwards
+            # keep what each decode group hands the decoder in the eager
+            # warm-up of the program's capture (the replay runs the same
+            # inputs), to hold the kernel against decode_plain afterwards
             def keep(llrs, groups, iters):
-                for (bg, zc, _, n_used), idxs in groups.items():
-                    group_inputs.append((
-                        torch.cat([llrs[i] for i in idxs]), bg, zc,
-                        {"nof_iterations": iters, "nof_used_blocks": n_used}))
+                if not (group_inputs
+                        or torch.cuda.is_current_stream_capturing()):
+                    for (bg, zc, _, n_used), idxs in groups.items():
+                        group_inputs.append((
+                            torch.cat([llrs[i] for i in idxs]), bg, zc,
+                            {"nof_iterations": iters,
+                             "nof_used_blocks": n_used}))
                 return decode_grouped(llrs, groups, iters)
             slot_programs._decode_grouped = keep
-        d0 = decoder_cuda.decode.launches
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         try:
-            inds = phy.process_ul_slot(rx, ul, slot_count=slot,
-                                       prach_rx=prach_rx)
+            inds = ul_slot(rx, ul, slot, prach_rx)
         finally:
             slot_programs._decode_grouped = decode_grouped
-        ul_ms.append((time.perf_counter() - t0) * 1e3)
-        ul_reqs.append(ul)
-        _check(decoder_cuda.decode.launches - d0 == len(groups),
-               f"UL slot {slot}: {decoder_cuda.decode.launches - d0} decoder "
-               f"launches for {len(groups)} decode groups")
         checks = fapi_carrier.ul_checks(car, ul, pay, inds,
                                         phy.last_ul_slot["pusch"])
         _check(all(checks.values()), f"UL slot {slot} checks: {checks}")
@@ -930,92 +1043,141 @@ def phase_upper_phy(dev, card: str) -> dict:
                         lambda: encoder_cuda.encode(cbs, 1, 384),
                         lambda: encoder_cuda.encode_plain(cbs, 1, 384), 200,
                         3, encoder_bound(1, 384, 8)))
+    encoder_cuda.encode.launches = launches["encoder"]
+    decoder_cuda.decode.launches = launches["decoder"]
 
-    # ---- HARQ pair: rv=0 fails, rv=2 combines on the full graph and passes
-    first = fapi_carrier.ul_request(car, UPPER_SLOTS, full=False,
-                                    harq_process=15)
-    pay = fapi_carrier.ul_payloads(first, rng)
-    rx1, _ = fapi_carrier.uplink(first, pay, car, gen,
-                                 snr_db=car.harq_snr_db)
-    inds1 = phy.process_ul_slot(rx1, first, slot_count=UPPER_SLOTS)
-    crc1 = [i for i in inds1 if isinstance(i, fapi.CrcIndication)][0]
-    _check(not crc1.tb_crc_ok and len(phy.softbuffers) == 1,
-           f"HARQ rv=0 at {car.harq_snr_db} dB: crc {crc1.tb_crc_ok}, "
-           f"{len(phy.softbuffers)} softbuffers")
-    rnti = first.pusch_pdus[0].config.rnti
-    prior = phy.softbuffers.get(rnti, 15).clone()
-    retx = fapi_carrier.ul_request(car, UPPER_SLOTS + 1, full=False,
-                                   harq_process=15, rv=2, new_data=False)
-    rx2, _ = fapi_carrier.uplink(retx, pay, car, gen, snr_db=car.harq_snr_db)
-    cfg2 = retx.pusch_pdus[0].config
-    seg = cfg2.segments
-    _check(sch.used_blocks(cfg2) is None
-           and decoder_cuda.state_bytes(seg.base_graph, seg.lifting_size)
-           <= 232_448,
-           "the retransmission does not take the full graph in shared memory")
-    d0 = decoder_cuda.decode.launches
-    inds2 = phy.process_ul_slot(rx2, retx, slot_count=UPPER_SLOTS + 1)
-    checks = fapi_carrier.ul_checks(car, retx, pay, inds2, None)
-    _check(checks["crc"] and checks["payload"] and len(phy.softbuffers) == 0
-           and decoder_cuda.decode.launches - d0 == 1,
-           f"HARQ rv=2 combined decode: {checks}, "
-           f"{len(phy.softbuffers)} softbuffers")
-    ul_reqs += [first, retx]
+    # ---- two HARQ pairs: rv=0 fails, rv=2 combines on the full graph and
+    # passes; the second pair replays the graphs the first one captured,
+    # on its own softbuffer
+    harq = []
+    for pid, slot in ((15, UPPER_SLOTS), (14, UPPER_SLOTS + 2)):
+        first = fapi_carrier.ul_request(car, slot, full=False,
+                                        harq_process=pid)
+        pay = fapi_carrier.ul_payloads(first, rng)
+        rx1, _ = fapi_carrier.uplink(first, pay, car, gen,
+                                     snr_db=car.harq_snr_db)
+        inds1 = ul_slot(rx1, first, slot)
+        crc1 = [i for i in inds1 if isinstance(i, fapi.CrcIndication)][0]
+        _check(not crc1.tb_crc_ok and len(phy.softbuffers) == 1,
+               f"HARQ {pid} rv=0 at {car.harq_snr_db} dB: crc "
+               f"{crc1.tb_crc_ok}, {len(phy.softbuffers)} softbuffers")
+        rnti = first.pusch_pdus[0].config.rnti
+        prior = phy.softbuffers.get(rnti, pid).clone()
+        retx = fapi_carrier.ul_request(car, slot + 1, full=False,
+                                       harq_process=pid, rv=2,
+                                       new_data=False)
+        rx2, _ = fapi_carrier.uplink(retx, pay, car, gen,
+                                     snr_db=car.harq_snr_db)
+        cfg2 = retx.pusch_pdus[0].config
+        seg = cfg2.segments
+        _check(sch.used_blocks(cfg2) is None
+               and decoder_cuda.state_bytes(seg.base_graph, seg.lifting_size)
+               <= 232_448, "the retransmission does not take the full graph "
+               "in shared memory")
+        c0 = phy.graphs.captures
+        inds2 = ul_slot(rx2, retx, slot + 1)
+        checks = fapi_carrier.ul_checks(car, retx, pay, inds2, None)
+        _check(checks["crc"] and checks["payload"]
+               and len(phy.softbuffers) == 0,
+               f"HARQ {pid} rv=2 combined decode: {checks}, "
+               f"{len(phy.softbuffers)} softbuffers")
+        harq.append(phy.graphs.captures - c0)
+    _check(harq == [1, 0], f"captures of the rv=2 slots {harq}: the second "
+           f"pair must replay the first pair's graph")
     # the slot number is normalised out of the signature: the two mixes of
-    # the eight slots and the retransmission (rv=2) make three
+    # the eight slots and the retransmission (rv=2) make three; one capture
+    # per distinct DL and UL signature
     sigs = {slot_programs.signature(r) for r in ul_reqs}
-    _check(phy.ul_programs.nof_compiled == len(sigs) == 3,
+    dl_sigs = {slot_programs.dl_signature(r) for r in dl_reqs}
+    _check(phy.ul_programs.nof_compiled == len(sigs) == 3
+           and phy.graphs.captures == len(sigs) + len(dl_sigs),
            f"{phy.ul_programs.nof_compiled} UL programs for {len(sigs)} "
-           f"signatures, not 3")
+           f"signatures, not 3; {phy.graphs.captures} captures for "
+           f"{len(sigs) + len(dl_sigs)} DL and UL signatures")
 
-    # ---- the full-graph decoder on the combined buffer: kernel vs plain,
-    # and the same LLRs through the rv=0 truncated graph
+    # ---- the full-graph decoder on the last combined buffer: kernel vs
+    # plain, and the same LLRs through the rv=0 truncated graph
     combined = (prior + sch.pusch_demodulate(rx2[None], cfg2).llr_full[0]
                 ).contiguous()
     bg, zc = seg.base_graph, seg.lifting_size
     n_used = sch.used_blocks(dataclasses.replace(cfg2, rv=0))
-    full = lambda: decoder_cuda.decode(combined, bg, zc)
-    plain = lambda: decoder_cuda.decode_plain(combined, bg, zc)
-    got, want = full(), plain()
-    torch.cuda.synchronize()
-    _check(all(torch.equal(a, b) for a, b in zip(got, want))
-           and bool(got[1].all()),
-           "full-graph decoder != plain on the combined buffer")
-    err = float((got[0].int() - want[0].int()).abs().max())
-    shape = f"BG{bg} Z={zc} x{combined.shape[0]} full graph (HARQ rv=2)"
-    times.append(_timed("decoder", shape, full, plain, 50, 3,
-                        decoder_bound(combined, bg, zc)))
-    full_split = _phase_split(shape, combined, bg, zc, None)
-    trunc = lambda: decoder_cuda.decode(combined, bg, zc,
-                                        nof_used_blocks=n_used)
-    want = decoder_cuda.decode_plain(combined, bg, zc, nof_used_blocks=n_used)
-    _check(all(torch.equal(a, b) for a, b in zip(trunc(), want)),
-           f"truncated-graph decoder (n_used {n_used}) != plain on the "
-           f"combined buffer")
-    trunc_ms = _time_ms(trunc, 50, queued=True)
+    with _uncounted():
+        full = lambda: decoder_cuda.decode(combined, bg, zc)
+        plain = lambda: decoder_cuda.decode_plain(combined, bg, zc)
+        got, want = full(), plain()
+        torch.cuda.synchronize()
+        _check(all(torch.equal(a, b) for a, b in zip(got, want))
+               and bool(got[1].all()),
+               "full-graph decoder != plain on the combined buffer")
+        err = float((got[0].int() - want[0].int()).abs().max())
+        shape = f"BG{bg} Z={zc} x{combined.shape[0]} full graph (HARQ rv=2)"
+        times.append(_timed("decoder", shape, full, plain, 50, 3,
+                            decoder_bound(combined, bg, zc)))
+        full_split = _phase_split(shape, combined, bg, zc, None)
+        trunc = lambda: decoder_cuda.decode(combined, bg, zc,
+                                            nof_used_blocks=n_used)
+        want = decoder_cuda.decode_plain(combined, bg, zc,
+                                         nof_used_blocks=n_used)
+        _check(all(torch.equal(a, b) for a, b in zip(trunc(), want)),
+               f"truncated-graph decoder (n_used {n_used}) != plain on the "
+               f"combined buffer")
+        trunc_ms = _time_ms(trunc, 50, queued=True)
+    launches = {"encoder": encoder_cuda.encode.launches,
+                "decoder": decoder_cuda.decode.launches}
+
+    # ---- the programs alone: replay vs eager body on their last inputs
+    progs = {"DL": phy.dl_programs.get(slot_programs.dl_signature(
+                 dl_reqs[0])).program,
+             "UL full mix": phy.ul_programs.get(slot_programs.signature(
+                 ul_reqs[0])).program,
+             "UL PUSCH B + F1": phy.ul_programs.get(slot_programs.signature(
+                 ul_reqs[1])).program,
+             "UL HARQ rv=2": phy.ul_programs.get(slot_programs.signature(
+                 ul_reqs[-1])).program}
+    prog_ms = {k: _program_ms(p, 10) for k, p in progs.items()}
+    g = phy.graphs
     print(f"[upper-phy] {car.nof_prb}-PRB FAPI carrier, 4 rx, "
-          f"{car.snr_db:.0f} dB: {UPPER_SLOTS} DL slots {np.median(dl_ms):.2f}"
-          f" ms median ({min(dl_ms):.2f}-{max(dl_ms):.2f}), PDSCH symbol "
-          f"match min {min(matches):.4f}; {UPPER_SLOTS} UL slots "
-          f"{np.median(ul_ms):.2f} ms median ({min(ul_ms):.2f}-"
-          f"{max(ul_ms):.2f}), every CRC/payload/UCI/PUCCH/PRACH check ok, "
-          f"PUSCH B SINR {np.mean(sinr_b):.2f} dB, launches {launches}; "
-          f"HARQ rv=0 fail -> rv=2 combined pass at {car.harq_snr_db:.0f} dB;"
+          f"{car.snr_db:.0f} dB: {UPPER_SLOTS} DL slots, PDSCH symbol "
+          f"match min {min(matches):.4f}; {UPPER_SLOTS} UL slots, every "
+          f"CRC/payload/UCI/PUCCH/PRACH check ok, PUSCH B SINR "
+          f"{np.mean(sinr_b):.2f} dB, launches {launches}; two HARQ pairs "
+          f"rv=0 fail -> rv=2 combined pass at {car.harq_snr_db:.0f} dB;"
           f" {phy.ul_programs.nof_compiled} UL programs for {len(sigs)} "
           f"signatures; {_fmt(times[-1])}; the same LLRs on the truncated "
           f"graph n_used {n_used}: {trunc_ms * 1e3:.1f} us on {card}")
+    print(f"[upper-phy] captured programs: every DL and UL slot's replay == "
+          f"the program's eager run on the same inputs (bits and verdicts "
+          f"exact, floats within 1e-5 of max|ref|), graphs replayed on later "
+          f"slots' c_inits, payloads and HARQ state; {g.captures} captures "
+          f"({phy.dl_programs.nof_compiled} DL + "
+          f"{phy.ul_programs.nof_compiled} UL signatures) in "
+          f"{g.capture_seconds:.2f} s, {g.replays} replays, pool "
+          f"{g.reserved_bytes() / 2**20:.1f} MiB reserved; launches per "
+          f"replay (encoder, decoder): "
+          + ", ".join(f"{k} {p.captured_launches}" for k, p in progs.items())
+          + f"; ms per slot through UpperPhy (host clock after synchronize, "
+          f"slots whose signature was captured before): DL "
+          f"{_ms(dl_ms[False])} over {len(dl_ms[False])}, UL "
+          f"{_ms(ul_ms[False])} over {len(ul_ms[False])}; slots that "
+          f"captured: DL {_ms(dl_ms[True])}, UL {_ms(ul_ms[True])}; the "
+          f"programs alone, replay vs eager body on the same inputs (10 "
+          f"each): "
+          + "; ".join(f"{k} {_ms(r)} vs {_ms(e)}"
+                      for k, (r, e) in prog_ms.items()) + f" on {card}")
     print(f"[upper-phy] the decode groups of UL slot 0 (kernel == plain on "
           f"the program's LLRs) and a DL slot's encoder shape: "
           f"{'; '.join(map(_fmt, times[:-1]))}; truncated "
           f"n_used {n_used} == plain on the combined buffer; full-graph phase "
           f"split per CTA: {full_split} on {card}")
     return {"launches": launches, "max_err": err, "times": times,
-            "phy": phy, "car": car, "gen": gen, "rng": rng}
+            "phy": phy, "car": car, "gen": gen, "rng": rng,
+            "progs": progs}
 
 
 def phase_upper_profile(card: str, u: dict) -> None:
     """torch.profiler over two DL slots and, apart, two full-mix UL slots of
-    the upper PHY."""
+    the upper PHY (replays of their programs), then over one replay and
+    one eager run of the DL and the full-mix UL program alone."""
     phy, car, gen, rng = u["phy"], u["car"], u["gen"], u["rng"]
     req, data = fapi_carrier.dl_request(car, 0, rng)
     ul = fapi_carrier.ul_request(car, 0)
@@ -1024,8 +1186,16 @@ def phase_upper_profile(card: str, u: dict) -> None:
     dl = _profiled(lambda: phy.process_dl_slot(req, data), 2, "DL slot")
     ul_s = _profiled(lambda: phy.process_ul_slot(rx, ul, prach_rx=prach_rx),
                      2, "UL slot")
-    print(f"[upper-profile] 2 DL slots: {dl}; 2 full-mix UL slots: {ul_s} "
-          f"on {card}")
+    alone = []
+    for name in ("DL", "UL full mix"):
+        prog = u["progs"][name]
+        inputs = prog.inputs
+        alone.append(f"{name} replay: "
+                     f"{_profiled(lambda: prog(*inputs), 1, 'replay')}; "
+                     f"eager: "
+                     f"{_profiled(lambda: prog.eager(*inputs), 1, 'run')}")
+    print(f"[upper-profile] 2 DL slots: {dl}; 2 full-mix UL slots: {ul_s}; "
+          f"{'; '.join(alone)} on {card}")
 
 
 def _waves(rows: int, bg: int, zc: int, n_used) -> tuple[int, int]:
@@ -1322,7 +1492,10 @@ def phase_lower(dev, card: str, u: dict) -> dict:
     encoder_cuda.encode.launches = 0
     decoder_cuda.decode.launches = 0
     reqs = [fapi_carrier.dl_request(car, s, rng) for s in range(nslots)]
+    c0 = phy.graphs.captures
+    # eight grids kept at once: each is the slot's own, not the last replay's
     grids = [phy.process_dl_slot(req, data) for req, data in reqs]
+    warmups = phy.graphs.captures - c0
     got = {}
     eng = lower_phy.AsyncLowerPhy(
         cfg, lambda s: grids[s] if s < nslots else None,
@@ -1349,8 +1522,8 @@ def phase_lower(dev, card: str, u: dict) -> dict:
     torch.cuda.synchronize()
     launches = {"encoder": encoder_cuda.encode.launches,
                 "decoder": decoder_cuda.decode.launches}
-    _check(launches == {"encoder": 2 * nslots, "decoder": nslots},
-           f"lower-PHY run launches {launches}")
+    _check(launches == {"encoder": 2 * (nslots + warmups), "decoder": nslots},
+           f"lower-PHY run launches {launches} ({warmups} captures)")
     st = eng.tx_stats
     stats = (f"mean {float(st.mean_power_dbfs):.2f} dBFS, peak "
              f"{float(st.peak_power_dbfs):.2f} dBFS, PAPR "
@@ -1963,6 +2136,11 @@ def phase_app(dev, card: str, raw: dict = APP_RAW) -> dict:
                      APP_PROFILE_SLOTS, "slot")
 
     st = rep["phy_stats"]
+    pools = "; ".join(
+        f"{who}: {p.captures} captures in {p.capture_seconds:.2f} s, "
+        f"{p.replays} replays, pool {p.reserved_bytes() / 2**20:.1f} MiB"
+        for who, p in (("gNB UpperPhy", gnb._phy.upper.graphs),
+                       ("UE modem", gnb._phy.graphs)))
     print(f"[{label}] gnb_loopback settings, mu={cfg.mu}, nfft "
           f"{gnb._phy.nfft}, TDD {cfg.tdd}, {cfg.slots - APP_PROFILE_SLOTS} "
           f"slots at {cfg.snr_db:.0f} dB: RRC {rep['ue_rrc_state']} at slot "
@@ -1975,7 +2153,8 @@ def phase_app(dev, card: str, raw: dict = APP_RAW) -> dict:
           f"{_pct(every, 50):.3f} p90 {_pct(every, 90):.3f}, the {len(work)} "
           f"with PHY work median {_pct(work, 50):.3f} p90 "
           f"{_pct(work, 90):.3f}; split per slot after attach: {split_s}; "
-          f"launches {r['launches']} on {card}")
+          f"launches {r['launches']}; captured programs (run and profile) "
+          f"{pools} on {card}")
     print(f"[{label}] every launch bit-exact against its plain version; "
           f"launches per shape: {r['counts']}; "
           + "; ".join(f"{_fmt(t)} x{t['launches']}" for t in r["times"])

@@ -51,58 +51,113 @@ from ..scheduler import CellConfig, dci as dci_mod
 from ..scheduler import config as cell_cfg
 from ..scheduler.cell_scheduler import SI_RNTI
 from ..scheduler.pdcch_alloc import PdcchSlotAllocator
+from ..utils import graphs
 
 
-def csi_sinr_db(rx: torch.Tensor, csi_cfg) -> float:
-    """SINR (dB) of the CSI-RS resource's REs in one received grid
-    [14, nsc]: the resource's power over the power of rx − resource."""
+def _pool(pool: graphs.GraphPool | None,
+          device: torch.device) -> graphs.GraphPool:
+    """The caller's graph pool, or one for this call alone."""
+    return pool if pool is not None else graphs.GraphPool(device)
+
+
+# The UE modem's programs, each the counterpart of one JAX jit of the JAX
+# app: one captured program per static config, on the caller's graph pool
+# (a CUDA graph replay on the card, eager on the CPU).  Their configs
+# normalise slot_in_frame to 0 and take the slot's sequences (DM-RS pilots,
+# PUCCH F1 sequences) as input tensors, so one program serves every slot of
+# the frame.  Outputs that the caller keeps are copied out of the pool.
+def _csi_sinr(rx: torch.Tensor, csi_cfg) -> torch.Tensor:
     ref = csi_rs_proc.generate(csi_cfg, torch.zeros_like(rx))
     mask = ref.abs() > 0
     err = torch.where(mask, rx - ref, 0.0)
     sig = torch.where(mask, ref.abs() ** 2, 0.0).sum()
     npow = torch.clamp((err.abs() ** 2).sum(), min=1e-12)
-    return float(10.0 * torch.log10(sig / npow))
+    return 10.0 * torch.log10(sig / npow)
 
 
-# The UE modem's configs normalise slot_in_frame to 0 and take the slot's
-# DM-RS sequences as data, as the JAX package's cached programs do, so the
-# per-config tables the PHY caches are one set for every slot of the frame.
-def ue_pdsch_receive(rx: torch.Tensor, cfg: sch.ShConfig
+def csi_sinr_db(rx: torch.Tensor, csi_cfg,
+                pool: graphs.GraphPool | None = None) -> float:
+    """SINR (dB) of the CSI-RS resource's REs in one received grid
+    [14, nsc]: the resource's power over the power of rx − resource."""
+    prog = _pool(pool, rx.device).cached(
+        ("csi_sinr", csi_cfg), lambda: lambda g: _csi_sinr(g, csi_cfg))
+    return float(prog(rx))
+
+
+def ue_pdsch_receive(rx: torch.Tensor, cfg: sch.ShConfig,
+                     pool: graphs.GraphPool | None = None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """UE-side PDSCH decode (6 LDPC iterations) of one received grid
     [14, nsc]: (TB bits [A], TB CRC ok [])."""
     cfg0 = dataclasses.replace(cfg, slot_in_frame=0)
-    pil = dmrs_ops.pilot_values(pusch_cinits(cfg), cfg0.prb_start,
-                                cfg0.nof_prb, rx.device)
-    res = sch.pusch_receive(rx[None, None], cfg0, 6, tx_pilots=pil)
-    return res.tb_bits[0], res.tb_crc_ok[0]
+
+    def build():
+        def fn(g, pil):
+            res = sch.pusch_receive(g[None, None], cfg0, 6, tx_pilots=pil)
+            return res.tb_bits[0], res.tb_crc_ok[0]
+        return fn
+    prog = _pool(pool, rx.device).cached(("pdsch_rx", cfg0), build)
+    bits, ok = prog(rx, _pilots(cfg, rx.device))
+    return bits.clone(), ok.clone()
 
 
 def ue_pusch_transmit(bits: torch.Tensor, cfg: sch.ShConfig,
-                      grid: torch.Tensor) -> torch.Tensor:
+                      grid: torch.Tensor,
+                      pool: graphs.GraphPool | None = None) -> torch.Tensor:
     """UE-side PUSCH of TB bits [A] onto a [14, nsc] grid."""
     cfg0 = dataclasses.replace(cfg, slot_in_frame=0)
-    pil = dmrs_ops.pilot_values(pusch_cinits(cfg), cfg0.prb_start,
-                                cfg0.nof_prb, grid.device)
-    return sch.pusch_transmit(bits[None], cfg0, grid[None], pilots=pil)[0]
+    prog = _pool(pool, grid.device).cached(
+        ("pusch_tx", cfg0), lambda: lambda b, g, pil: sch.pusch_transmit(
+            b[None], cfg0, g[None], pilots=pil)[0])
+    return prog(bits, grid, _pilots(cfg, grid.device)).clone()
 
 
 def ue_pucch_f1_transmit(bits: torch.Tensor, cfg: pucch_proc.PucchF1Config,
-                         grid: torch.Tensor) -> torch.Tensor:
+                         grid: torch.Tensor,
+                         pool: graphs.GraphPool | None = None
+                         ) -> torch.Tensor:
     """UE-side PUCCH F1 of HARQ-ACK/SR bits [1] onto a [14, nsc] grid."""
     cfg0 = dataclasses.replace(cfg, slot_in_frame=0)
-    seqs = pucch_proc.f1_slot_seqs_on(cfg, grid.device)
-    return pucch_proc.pucch_f1_transmit(bits[None], cfg0, grid[None],
-                                        seqs=seqs)[0]
+    prog = _pool(pool, grid.device).cached(
+        ("pucch_f1_tx", cfg0),
+        lambda: lambda b, g, data, dmrs: pucch_proc.pucch_f1_transmit(
+            b[None], cfg0, g[None], seqs=(data, dmrs))[0])
+    return prog(bits, grid,
+                *pucch_proc.f1_slot_seqs_on(cfg, grid.device)).clone()
 
 
 def ue_pucch_f2_transmit(bits: torch.Tensor, cfg: pucch_proc.PucchF2Config,
-                         grid: torch.Tensor) -> torch.Tensor:
+                         grid: torch.Tensor,
+                         pool: graphs.GraphPool | None = None
+                         ) -> torch.Tensor:
     """UE-side PUCCH F2 of UCI bits [O] onto a [14, nsc] grid."""
     cfg0 = dataclasses.replace(cfg, slot_in_frame=0)
-    return pucch_proc.pucch_f2_transmit(
-        bits[None], cfg0, grid[None],
-        dmrs_cinits=pucch_proc.f2_dmrs_cinits(cfg))[0]
+    prog = _pool(pool, grid.device).cached(
+        ("pucch_f2_tx", cfg0),
+        lambda: lambda b, g, pil: pucch_proc.pucch_f2_transmit(
+            b[None], cfg0, g[None], pilots=pil)[0])
+    return prog(bits, grid,
+                pucch_proc.f2_dmrs_pilots(cfg, grid.device)).clone()
+
+
+def ue_blind_decode(rx: torch.Tensor, cfg: pdcch_proc.PdcchConfig,
+                    candidates: torch.Tensor,
+                    pool: graphs.GraphPool | None = None
+                    ) -> tuple[np.ndarray, np.ndarray]:
+    """The UE's blind decode of one received grid [14, nsc] over the
+    candidate CCEs [M] (a tensor on the grid's device): (payloads [M, A],
+    crc_ok [M]) on the host."""
+    prog = _pool(pool, rx.device).cached(
+        ("blind_decode", cfg), lambda: lambda g, c: tuple(
+            t[0] for t in pdcch_proc.pdcch_blind_receive(g[None], cfg, c)))
+    payloads, oks = prog(rx, candidates)
+    return payloads.cpu().numpy(), oks.cpu().numpy()
+
+
+def _pilots(cfg: sch.ShConfig, device: torch.device) -> torch.Tensor:
+    """The DM-RS pilots of the config's slot (cached on `device`)."""
+    return dmrs_ops.pilot_values(pusch_cinits(cfg), cfg.prb_start,
+                                 cfg.nof_prb, device)
 
 
 @dataclasses.dataclass
@@ -131,6 +186,9 @@ class PhyLoop:
                                              nfft=self.nfft,
                                              sanitize=sanitize), device)
         self.device = self.upper.device
+        # the UE modem's programs (csi_sinr_db, ue_blind_decode,
+        # ue_pdsch_receive and the UL transmitters) and their counters
+        self.graphs = graphs.GraphPool(self.device)
         self.snr_db = snr_db
         self.ue_delay_samples = float(ue_delay_samples)
         self._rng = np.random.default_rng(1234)
@@ -186,11 +244,10 @@ class PhyLoop:
         cand = sorted(set(cand))
         width = self.cell.pdcch_candidates
         cand = (cand + cand[:1] * width)[:width]
-        payloads, oks = pdcch_proc.pdcch_blind_receive(
-            rx_grid[None], cfg, torch.tensor(cand, dtype=torch.int32))
+        payloads, oks = ue_blind_decode(
+            rx_grid, cfg, torch.tensor(cand, dtype=torch.int32,
+                                       device=rx_grid.device), self.graphs)
         out: dict = {}
-        oks = oks[0].cpu().numpy()
-        payloads = payloads[0].cpu().numpy()
         for i in range(len(cand)):
             if oks[i]:
                 d = dci_mod.unpack(payloads[i], n)
@@ -243,7 +300,8 @@ class PhyLoop:
             for k, d in self._ue_blind_decode_dci(rx, rnti, slot).items():
                 dcis[(rnti,) + k] = d
         if self._is_csi_slot(slot) and dl_req.csi_rs_pdus:
-            sinr_db = csi_sinr_db(rx, dl_req.csi_rs_pdus[0].config)
+            sinr_db = csi_sinr_db(rx, dl_req.csi_rs_pdus[0].config,
+                                  self.graphs)
             ue.last_cqi = mcs_tables.sinr_to_cqi(sinr_db)
 
         for pdu in dl_req.pdsch_pdus:
@@ -252,7 +310,7 @@ class PhyLoop:
             if d is None:
                 continue                  # no DCI decoded → no PDSCH
             ue_cfg = self._ue_sh_config(d, cfg.rnti, slot)
-            tb_bits, tb_ok = ue_pdsch_receive(rx, ue_cfg)
+            tb_bits, tb_ok = ue_pdsch_receive(rx, ue_cfg, self.graphs)
             ok = bool(tb_ok)
             if cfg.rnti == ue.rnti:
                 ack_slot = cell_cfg.next_ul_slot(self.cell,
@@ -329,7 +387,7 @@ class PhyLoop:
             wire = ue.build_ul_pdu(g)
             cfg = self._ue_ul_sh_config(g, slot)
             bits = torch.as_tensor(_bits(wire, cfg.tbs), device=dev)
-            grid = ue_pusch_transmit(bits, cfg, grid)
+            grid = ue_pusch_transmit(bits, cfg, grid, self.graphs)
             active = True
         # ---- PUCCH F1 HARQ-ACK (resource from the DCI's PRI)
         for pri, ack in self._ue_acks.pop(slot, []):
@@ -339,7 +397,7 @@ class PhyLoop:
             cfg = pucch_proc.PucchF1Config(
                 prb=prb, initial_cyclic_shift=cs,
                 slot_in_frame=slot % self.cell.slots_per_frame)
-            grid = ue_pucch_f1_transmit(one, cfg, grid)
+            grid = ue_pucch_f1_transmit(one, cfg, grid, self.graphs)
             self.stats["pucch_ack_tx"] += 1
             active = True
         pc = getattr(getattr(ue, "rrc", None), "pucch_cfg", None)
@@ -356,7 +414,7 @@ class PhyLoop:
                     prb=sr_cfg["prb"],
                     initial_cyclic_shift=sr_cfg["cs"],
                     slot_in_frame=slot % self.cell.slots_per_frame)
-                grid = ue_pucch_f1_transmit(one, cfg, grid)
+                grid = ue_pucch_f1_transmit(one, cfg, grid, self.graphs)
                 self.stats["sr_tx"] += 1
                 active = True
             # ---- periodic CSI on PUCCH F2
@@ -371,7 +429,7 @@ class PhyLoop:
                 cqi_bits = torch.tensor(
                     [(ue.last_cqi >> (3 - i)) & 1 for i in range(4)],
                     dtype=torch.int8, device=dev)
-                grid = ue_pucch_f2_transmit(cqi_bits, f2, grid)
+                grid = ue_pucch_f2_transmit(cqi_bits, f2, grid, self.graphs)
                 self.stats["csi_f2_tx"] += 1
                 active = True
         if not active:

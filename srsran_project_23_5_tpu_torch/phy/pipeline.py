@@ -123,7 +123,6 @@ class SlotPipeline:
         # scan mode: static buffers, the graph and what it launches
         self._noise: tuple[torch.Tensor, ...] | None = None
         self._static_payloads = None
-        self._payload_src = None
         self._graph: torch.cuda.CUDAGraph | None = None
         self._graph_out: tuple[torch.Tensor, torch.Tensor] | None = None
         self.captured_launches: tuple[int, ...] = (0,) * len(_KERNELS)
@@ -270,16 +269,10 @@ class SlotPipeline:
         return all_ok, sinr_sum
 
     def _set_payloads(self, batch) -> None:
-        """Copy the payloads into the static buffers when they are other
-        tensors than the last ones seen (in-place changes to the same
-        tensors are not seen).  The CPU loop reads the same buffers, so
-        the CPU tests reach this logic."""
+        """Copy the payloads into the static buffers, always: a tensor
+        changed in place and submitted again is seen.  The CPU loop reads
+        the same buffers, so the CPU tests reach this logic."""
         self._check_device(batch)
-        src = _tensors(batch)
-        if self._payload_src is not None and len(src) == len(
-                self._payload_src) and all(
-                a is b for a, b in zip(src, self._payload_src)):
-            return
         got = _tensors(batch)[0].shape[0]
         if got != self.config.slots_per_batch:
             raise ValueError(f"scan payloads hold {got} slots, the "
@@ -288,11 +281,10 @@ class SlotPipeline:
             self._static_payloads = (
                 {k: v.clone() for k, v in batch.items()}
                 if isinstance(batch, dict) else batch.clone())
-        else:
-            for dst, src in zip(_tensors(self._static_payloads),
-                                _tensors(batch)):
-                dst.copy_(src)
-        self._payload_src = src
+            return
+        for dst, src in zip(_tensors(self._static_payloads),
+                            _tensors(batch)):
+            dst.copy_(src)
 
     def replay_scan(self) -> tuple[torch.Tensor, torch.Tensor]:
         """Replay the captured K-batch graph on the static buffers as they

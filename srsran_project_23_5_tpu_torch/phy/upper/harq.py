@@ -39,7 +39,8 @@ class SoftbufferPool:
 
     # raw storage for the fused slot programs: the combine itself runs on the
     # device inside the program; the pool only holds the results between
-    # slots (slot_programs.py)
+    # slots (slot_programs.py).  ``put`` keeps a copy: a program's output
+    # is overwritten by the next replay of its graph pool
     def get(self, rnti: int, harq: int) -> torch.Tensor | None:
         e = self._buffers.get((rnti, harq))
         return e.llr if e is not None else None
@@ -47,7 +48,7 @@ class SoftbufferPool:
     def put(self, rnti: int, harq: int, llr: torch.Tensor,
             slot_count: int) -> None:
         self._buffers[(rnti, harq)] = _Entry(
-            llr=llr, expiry_slot=slot_count + self._expiry)
+            llr=llr.clone(), expiry_slot=slot_count + self._expiry)
 
     def release(self, rnti: int, harq: int) -> None:
         self._buffers.pop((rnti, harq), None)

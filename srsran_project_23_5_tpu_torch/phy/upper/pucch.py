@@ -5,8 +5,9 @@ Counterpart of ``srsran_project_23_5_tpu/phy/upper/pucch.py``: F1 carries
 OCC; F2 carries 3-11 UCI bits, short-block coded, scrambled and QPSK
 modulated, with DM-RS on every third subcarrier.  Sequences are host
 constants; every slot of the batch is processed at once.  The
-slot-dependent sequences (F1 cyclic-shift hopping, F2 DM-RS c_init) can be
-passed in, so one config normalised to slot 0 serves every slot.
+slot-dependent sequences (F1 cyclic-shift hopping, F2 DM-RS c_init or its
+pilots) can be passed in, so one config normalised to slot 0 serves every
+slot.
 """
 from __future__ import annotations
 
@@ -210,11 +211,12 @@ def _f2_pilots_on(cinits: tuple[int, ...], npil: int, m0: int,
     return torch.complex(torch.from_numpy(re), torch.from_numpy(im)).to(device)
 
 
-def _f2_dmrs_pilots(cfg: PucchF2Config, device: torch.device,
-                    cinits=None) -> torch.Tensor:
-    """[nsym, npilot] DM-RS pilots (TS 38.211 §6.4.1.3.2: Gold-QPSK with the
-    sequence offset aligned to the PRB position).  cinits: the slot's
-    [nsym] c_init values (``f2_dmrs_cinits``), default the config's own."""
+def f2_dmrs_pilots(cfg: PucchF2Config, device: torch.device,
+                   cinits=None) -> torch.Tensor:
+    """[nsym, npilot] DM-RS pilots on `device`, cached per c_init (TS 38.211
+    §6.4.1.3.2: Gold-QPSK with the sequence offset aligned to the PRB
+    position).  cinits: the slot's [nsym] c_init values
+    (``f2_dmrs_cinits``), default the config's own."""
     if cinits is None:
         cinits = f2_dmrs_cinits(cfg)
     return _f2_pilots_on(tuple(int(c) for c in cinits), len(cfg.dmrs_sc),
@@ -233,13 +235,17 @@ def _f2_tables(cfg: PucchF2Config, device: torch.device):
 
 
 def pucch_f2_transmit(uci_bits: torch.Tensor, cfg: PucchF2Config,
-                      grid: torch.Tensor, dmrs_cinits=None) -> torch.Tensor:
-    """Map [B, nof_uci_bits] UCI bits onto [B, 14, nsc] grids (set)."""
+                      grid: torch.Tensor, dmrs_cinits=None,
+                      pilots: torch.Tensor | None = None) -> torch.Tensor:
+    """Map [B, nof_uci_bits] UCI bits onto [B, 14, nsc] grids (set).
+    pilots: the slot's DM-RS (``f2_dmrs_pilots``) as a tensor, in place of
+    the ones of ``dmrs_cinits`` or the config's slot."""
     data_sc, dmrs_sc, seq, _ = _f2_tables(cfg, grid.device)
     enc = short_block.encode(uci_bits, cfg.nof_data_re * 2)
     syms = modulation.modulate(enc ^ seq, 2)                 # [B, n_data_re]
     per_sym = len(cfg.data_sc)
-    pilots = _f2_dmrs_pilots(cfg, grid.device, dmrs_cinits)
+    if pilots is None:
+        pilots = f2_dmrs_pilots(cfg, grid.device, dmrs_cinits)
     out = grid.clone()
     for i, l in enumerate(cfg.symbols):
         out[..., l, data_sc] = syms[:, i * per_sym:(i + 1) * per_sym]
@@ -256,12 +262,14 @@ class PucchF2Result:
 
 def pucch_f2_receive(rx_grid: torch.Tensor, cfg: PucchF2Config,
                      detection_threshold: float = 0.5,
-                     dmrs_cinits=None) -> PucchF2Result:
+                     dmrs_cinits=None,
+                     pilots: torch.Tensor | None = None) -> PucchF2Result:
     """Receive F2 UCI from [B, nrx, 14, nsc] grids: channel estimate from
     the DM-RS over the grid, MRC, QPSK soft demap, descramble, short-block
-    ML detection."""
+    ML detection.  pilots: as in ``pucch_f2_transmit``."""
     data_sc, dmrs_sc, _, sign = _f2_tables(cfg, rx_grid.device)
-    pilots = _f2_dmrs_pilots(cfg, rx_grid.device, dmrs_cinits)
+    if pilots is None:
+        pilots = f2_dmrs_pilots(cfg, rx_grid.device, dmrs_cinits)
     y_p = torch.stack([rx_grid[..., l, dmrs_sc] for l in cfg.symbols], dim=-2)
     est = estimator.estimate_port(y_p, pilots, cfg.dmrs_sc, rx_grid.shape[-1],
                                   rx_grid.shape[-2])

@@ -1,14 +1,13 @@
-"""Bucketed slot programs — one cached program per slot signature.
+"""Bucketed slot programs — one captured program per slot signature.
 
 Counterpart of ``srsran_project_23_5_tpu/phy/upper/slot_programs.py``, the
 production path of the upper PHY.  A slot's PDU list maps to a SIGNATURE,
 the tuple of every PDU's static config with the slot number normalised
-away, and one program per signature processes the whole slot.  PyTorch runs
-eagerly, so a program here is a Python callable built once per signature:
-its configs, its decoder grouping and (through the per-config caches of the
-modules it calls) its index tables on the device are fixed at the first
-slot, and every later slot of the signature only runs it.  An UL program
-runs, for the whole slot:
+away, and one program per signature processes the whole slot: on CUDA one
+``torch.cuda.CUDAGraph`` replay per slot, captured at the signature's first
+slot (``utils/graphs.py``), as the JAX package runs one jitted dispatch; on
+the CPU the same body runs eagerly on the same static buffers.  An UL
+program runs, for the whole slot:
 
 - every PUSCH chain (estimate → equalize → demap → descramble → UCI demux
   → rate-dematch) with the slot's DM-RS, and the HARQ soft-combine
@@ -19,10 +18,12 @@ runs, for the whole slot:
 - PRACH detection over the occasion's root set;
 
 and ends in one host transfer of every verdict, bit and metric of the slot
-(the combined LLRs stay on the device for the softbuffer pool).  The slot's
-sequences ride as data: PUSCH/PDSCH DM-RS c_init values (pilots cached per
-value on the device), PUCCH F1 sequences and F2 DM-RS c_init values as
-complex tensors.
+(the combined LLRs stay on the device for the softbuffer pool).  Whatever
+changes from slot to slot is an input tensor of the program, never a value
+the body reads from Python: the payloads, the received grid, the HARQ
+priors and flags, and the slot's sequences (PUSCH/PDSCH DM-RS pilots, PUCCH
+F1 sequences and F2 DM-RS pilots), built on the host per slot (cached per
+c_init on the device) and copied into the program's static buffers.
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ from ...fapi import messages as fapi
 from ...ops import dmrs as dmrs_ops
 from ...ops import prach as prach_ops
 from ...ops.ldpc import decoder_cuda
+from ...utils import graphs
 from . import csi_rs as csi_rs_proc
 from . import pdcch as pdcch_proc
 from . import pucch as pucch_proc
@@ -59,46 +61,48 @@ class DlSlotPrograms:
     """Fused DL slot assembly: one program per slot signature builds the
     whole [14, nsc] grid (SSB + PDCCH + PDSCH + CSI-RS)."""
 
-    def __init__(self, nsc: int) -> None:
+    def __init__(self, nsc: int, pool: graphs.GraphPool) -> None:
         self.nsc = nsc
+        self.pool = pool
         self._progs: dict = {}
 
     @property
     def nof_compiled(self) -> int:
         return len(self._progs)
 
-    def get(self, sig):
-        fn = self._progs.get(sig)
-        if fn is None:
-            fn = self._build(sig)
-            self._progs[sig] = fn
-        return fn
+    def get(self, sig) -> SlotProgram:
+        prog = self._progs.get(sig)
+        if prog is None:
+            prog = self._progs[sig] = self._build(sig)
+        return prog
 
-    def _build(self, sig):
+    def _build(self, sig) -> SlotProgram:
         ssb_sigs, pdcch_cfgs, pdsch_cfgs, csi_cfgs = sig
-        nsc = self.nsc
+        nsc, dev = self.nsc, self.pool.device
 
-        def fn(ssb_payloads, dci_payloads, tbs, cinits,
-               device: torch.device) -> torch.Tensor:
-            """Payloads: [n] int8 tensors on `device`; cinits: per PDSCH the
-            slot's DM-RS c_init tuple.  Returns the [14, nsc] grid."""
+        def fn(ssb_payloads, dci_payloads, tbs, pilots) -> torch.Tensor:
+            """Payloads: [n] int8 tensors; pilots: per PDSCH the slot's
+            DM-RS [ndmrs, 6·nof_prb].  Returns the [14, nsc] grid."""
             grid = torch.zeros((1, 14, nsc), dtype=torch.complex64,
-                               device=device)
+                               device=dev)
             for (cfg, k0), bits in zip(ssb_sigs, ssb_payloads):
                 grid[:, 2:6, k0:k0 + ssb_proc.SSB_NSC] = ssb_proc.ssb_assemble(
                     bits[None], cfg)
             for cfg, bits in zip(pdcch_cfgs, dci_payloads):
                 grid = pdcch_proc.pdcch_transmit(bits[None], cfg, grid)
-            for cfg, tb, ci in zip(pdsch_cfgs, tbs, cinits):
-                pil = dmrs_ops.pilot_values(ci, cfg.prb_start, cfg.nof_prb,
-                                            device)
+            for cfg, tb, pil in zip(pdsch_cfgs, tbs, pilots):
                 grid = sch.pdsch_transmit(tb[None], cfg, grid, pilots=pil)
             # CSI-RS after PDSCH: its REs sit in the PDSCH reserved pattern
             for cfg in csi_cfgs:
                 grid = csi_rs_proc.generate(cfg, grid)
             return grid[0]
 
-        return fn
+        def pilots_of(ssb_payloads, dci_payloads, tbs, cinits):
+            """cinits: per PDSCH the slot's DM-RS c_init tuple."""
+            return (ssb_payloads, dci_payloads, tbs,
+                    _sh_pilots(pdsch_cfgs, cinits, dev))
+
+        return SlotProgram(self.pool.program(fn), pilots_of)
 
 
 def signature(req: fapi.UlTtiRequest):
@@ -135,6 +139,28 @@ def pusch_cinits(cfg: sch.ShConfig) -> tuple[int, ...]:
     """DM-RS c_init values of a PUSCH/PDSCH config's slot, one per DM-RS
     symbol."""
     return tuple(cfg.dmrs_cinit(l) for l in cfg.dmrs_symbols)
+
+
+def _sh_pilots(cfgs, cinits, device: torch.device) -> tuple:
+    """Per PUSCH/PDSCH config, the DM-RS pilots [ndmrs, 6·nof_prb] of the
+    slot's c_init values (cached per value on `device`)."""
+    return tuple(dmrs_ops.pilot_values(tuple(ci), cfg.prb_start, cfg.nof_prb,
+                                       device)
+                 for cfg, ci in zip(cfgs, cinits))
+
+
+class SlotProgram:
+    """One signature's program.  It takes the slot's sequences as c_init
+    values, as the JAX program does, turns them into pilot tensors on the
+    host side (cached per value on the device) and runs ``program``, the
+    captured body, on the slot's tensors and those pilots."""
+
+    def __init__(self, program: graphs.Program, pilots_of) -> None:
+        self.program = program
+        self._pilots_of = pilots_of
+
+    def __call__(self, *args):
+        return self.program(*self._pilots_of(*args))
 
 
 def decode_groups(cfgs) -> dict:
@@ -205,7 +231,9 @@ def fetch(tree):
 class UlSlotPrograms:
     """Cache of fused UL slot programs keyed by slot signature."""
 
-    def __init__(self, nof_ldpc_iterations: int = 6) -> None:
+    def __init__(self, pool: graphs.GraphPool,
+                 nof_ldpc_iterations: int = 6) -> None:
+        self.pool = pool
         self.nof_ldpc_iterations = nof_ldpc_iterations
         self._progs: dict = {}
 
@@ -213,31 +241,26 @@ class UlSlotPrograms:
     def nof_compiled(self) -> int:
         return len(self._progs)
 
-    def get(self, sig):
-        fn = self._progs.get(sig)
-        if fn is None:
-            fn = self._build(sig)
-            self._progs[sig] = fn
-        return fn
+    def get(self, sig) -> SlotProgram:
+        prog = self._progs.get(sig)
+        if prog is None:
+            prog = self._progs[sig] = self._build(sig)
+        return prog
 
-    def _build(self, sig):
+    def _build(self, sig) -> SlotProgram:
         pusch_cfgs, pucch_cfgs, prach_sigs = sig
         iters = self.nof_ldpc_iterations
         groups = decode_groups(pusch_cfgs)
 
-        def fn(rx_grid, priors, new_data, prach_rx, cinits, pucch_data):
+        def fn(rx_grid, priors, new_data, prach_rx, pilots, pucch_data):
             """rx_grid [nrx, 14, nsc]; priors [C, N] and new_data (bool
-            tensor) per PUSCH; prach_rx [nrx, L]; cinits per PUSCH; pucch_data
-            per PUCCH (``pucch_slot_data``).  Returns the slot's outputs as
-            device tensors."""
-            dev = rx_grid.device
+            tensor) per PUSCH; prach_rx [nrx, L]; pilots [ndmrs, 6·nof_prb]
+            per PUSCH; per PUCCH (F1 sequences | None, F2 DM-RS pilots |
+            None).  Returns the slot's outputs as device tensors."""
             rx = rx_grid[None]                                  # B = 1
             # ---- PUSCH front halves + HARQ combine on the device
-            demods = [
-                sch.pusch_demodulate(
-                    rx, cfg, tx_pilots=dmrs_ops.pilot_values(
-                        ci, cfg.prb_start, cfg.nof_prb, dev))
-                for cfg, ci in zip(pusch_cfgs, cinits)]
+            demods = [sch.pusch_demodulate(rx, cfg, tx_pilots=pil)
+                      for cfg, pil in zip(pusch_cfgs, pilots)]
             llrs = [torch.where(nd, d.llr_full[0], d.llr_full[0] + p)
                     for d, p, nd in zip(demods, priors, new_data)]
             # ---- one decoder launch per (BG, Zc, N, span) group
@@ -260,14 +283,14 @@ class UlSlotPrograms:
 
             # ---- PUCCH with the slot's sequences
             pucch_out = []
-            for (f1, f2), (s1, c2) in zip(pucch_cfgs, pucch_data):
+            for (f1, f2), (s1, p2) in zip(pucch_cfgs, pucch_data):
                 o = {}
                 if f1 is not None:
                     r1 = pucch_proc.pucch_f1_detect(rx, f1, seqs=s1)
                     o["f1"] = {"bits": r1.bits[0], "detected": r1.detected[0],
                                "metric": r1.detection_metric[0]}
                 if f2 is not None:
-                    r2 = pucch_proc.pucch_f2_receive(rx, f2, dmrs_cinits=c2)
+                    r2 = pucch_proc.pucch_f2_receive(rx, f2, pilots=p2)
                     o["f2"] = {"uci_bits": r2.uci_bits[0],
                                "detected": r2.detected[0],
                                "metric": r2.metric[0]}
@@ -283,7 +306,19 @@ class UlSlotPrograms:
             return {"pusch": pusch_out, "pucch": pucch_out,
                     "prach": prach_out}
 
-        return fn
+        def pilots_of(rx_grid, priors, new_data, prach_rx, cinits,
+                      pucch_data):
+            """cinits: per PUSCH the slot's DM-RS c_init tuple; pucch_data
+            per PUCCH as ``pucch_slot_data`` gives it."""
+            dev = rx_grid.device
+            pucch = tuple(
+                (s1, None if c2 is None
+                 else pucch_proc.f2_dmrs_pilots(f2, dev, c2))
+                for (_, f2), (s1, c2) in zip(pucch_cfgs, pucch_data))
+            return (rx_grid, priors, new_data, prach_rx,
+                    _sh_pilots(pusch_cfgs, cinits, dev), pucch)
+
+        return SlotProgram(self.pool.program(fn), pilots_of)
 
 
 def prach_scan(prach_rx: torch.Tensor, root: int, length: int, zcz: int,

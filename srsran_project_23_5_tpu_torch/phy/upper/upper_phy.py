@@ -5,8 +5,9 @@ slot's PDUs build one [14, nsc] grid and each UL slot's PDUs run against
 one [nrx, 14, nsc] received grid, on the device the ``UpperPhy`` was made
 for; the host only routes messages and owns the HARQ softbuffer pool.  The
 default (bucketed) path runs one cached program per slot signature
-(``slot_programs``); ``bucketed=False`` keeps the per-PDU path for A/B
-comparison.  The modules below take a leading slot batch; the upper PHY
+(``slot_programs``): one captured CUDA graph replay per slot on the card,
+the same body eagerly on the CPU; ``bucketed=False`` keeps the eager per-PDU
+path for A/B comparison.  The modules below take a leading slot batch; the upper PHY
 calls them with B = 1.
 """
 from __future__ import annotations
@@ -22,6 +23,7 @@ from . import csi_rs as csi_rs_proc
 from . import pdcch as pdcch_proc
 from . import pucch as pucch_proc
 from . import sch, slot_programs, ssb as ssb_proc
+from ...utils import graphs
 from ...utils.device import resolve as resolve_device
 from .harq import SoftbufferPool
 
@@ -57,23 +59,28 @@ class UpperPhy:
 
     ``last_ul_slot`` holds the host copy of the last fused UL slot's
     outputs, including the UCI decoded on each PUSCH (the JAX package
-    computes it and raises no indication for it)."""
+    computes it and raises no indication for it).  ``graphs`` is the pool
+    and the counters (captures, replays, capture seconds) of its DL and UL
+    programs."""
 
     def __init__(self, config: UpperPhyConfig,
                  device: torch.device | str | None = None) -> None:
         self.config = config
         self.device = resolve_device(device)
         self.softbuffers = SoftbufferPool()
+        self.graphs = graphs.GraphPool(self.device)
         self.ul_programs = slot_programs.UlSlotPrograms(
-            config.nof_ldpc_iterations)
-        self.dl_programs = slot_programs.DlSlotPrograms(config.nsc)
+            self.graphs, config.nof_ldpc_iterations)
+        self.dl_programs = slot_programs.DlSlotPrograms(config.nsc,
+                                                        self.graphs)
         self.last_ul_slot: dict | None = None
 
     # ------------------------------------------------------------- downlink
     def process_dl_slot(self, req: fapi.DlTtiRequest,
                         data: fapi.TxDataRequest | None = None
                         ) -> torch.Tensor:
-        """Build the slot's DL resource grid [14, nsc] from FAPI PDUs."""
+        """Build the slot's DL resource grid [14, nsc] from FAPI PDUs (a
+        tensor of its own: the next slot does not overwrite it)."""
         if self.config.sanitize:
             sanitizers.check_dl_slot(req, self.config.nof_tx_ports,
                                      self.config.nsc)
@@ -85,13 +92,13 @@ class UpperPhy:
                 # path
                 req = dataclasses.replace(
                     req, pdsch_pdus=req.pdsch_pdus[:len(tbs)])
-            fn = self.dl_programs.get(slot_programs.dl_signature(req))
-            return fn(
+            prog = self.dl_programs.get(slot_programs.dl_signature(req))
+            return prog(
                 tuple(_bits(p.payload_bits, dev) for p in req.ssb_pdus),
                 tuple(_bits(p.payload_bits, dev) for p in req.pdcch_pdus),
                 tuple(_bits(tb, dev) for tb in tbs[:len(req.pdsch_pdus)]),
                 tuple(slot_programs.pusch_cinits(p.config)
-                      for p in req.pdsch_pdus), dev)
+                      for p in req.pdsch_pdus)).clone()
         grid = torch.zeros((1, 14, self.config.nsc), dtype=torch.complex64,
                            device=dev)
         for pdu in req.ssb_pdus:
@@ -208,7 +215,7 @@ class UpperPhy:
             req = fapi.UlTtiRequest(req.sfn, req.slot, prach_pdus=[],
                                     pusch_pdus=req.pusch_pdus,
                                     pucch_pdus=req.pucch_pdus)
-        fn = self.ul_programs.get(slot_programs.signature(req))
+        prog = self.ul_programs.get(slot_programs.signature(req))
 
         priors, new_data = [], []
         for pdu in req.pusch_pdus:
@@ -226,14 +233,18 @@ class UpperPhy:
         pucch_data = tuple(slot_programs.pucch_slot_data(pdu, dev)
                            for pdu in req.pucch_pdus)
 
-        out = fn(rx_grid, tuple(priors), tuple(new_data), prach_rx, cinits,
-                 pucch_data)
-        # combined LLRs stay on the device; everything else comes to the
-        # host in one transfer
+        out = prog(rx_grid, tuple(priors), tuple(new_data), prach_rx, cinits,
+                   pucch_data)
+        # combined LLRs stay on the device (the pool keeps a copy: the next
+        # replay overwrites the program's outputs); everything else comes
+        # to the host in one transfer
         for pdu, o in zip(req.pusch_pdus, out["pusch"]):
             self.softbuffers.put(pdu.config.rnti, pdu.harq_process,
-                                 o.pop("combined_llr"), slot_count)
-        host = slot_programs.fetch(out)
+                                 o["combined_llr"], slot_count)
+        # (the outputs are the graph's own: read, never changed)
+        host = slot_programs.fetch({**out, "pusch": [
+            {k: v for k, v in o.items() if k != "combined_llr"}
+            for o in out["pusch"]]})
         self.last_ul_slot = host
 
         inds: list[object] = []

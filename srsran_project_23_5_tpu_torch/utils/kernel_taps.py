@@ -5,6 +5,9 @@ launch against its plain version.
 one caller of both wrappers on the slot paths) and ``slot_programs`` (the
 upper PHY's grouped PUSCH decode) for stand-ins that keep a copy of each
 call's tensors, and ``mismatches`` holds each against the plain version.
+A captured program (``utils/graphs.py``) launches no Python when it
+replays: the copies its capture recorded are refreshed by each replay and
+copied out right after it, so every launch of the block is in the sink.
 ``launch_counts`` reads the wrappers' counters, which count kernel
 launches only (a CPU tensor runs the plain version).
 """
@@ -17,6 +20,7 @@ import torch
 
 from ..ops.ldpc import decoder_cuda, encoder_cuda
 from ..phy.upper import sch, slot_programs
+from . import graphs
 
 
 class _ModuleTap:
@@ -45,20 +49,46 @@ class _ModuleTap:
         return getattr(self._module, name)
 
 
+def _copy(call: dict) -> dict:
+    return {**call, "x": call["x"].clone(),
+            "out": [o.clone() for o in call["out"]]}
+
+
 @contextlib.contextmanager
 def tapped_kernels():
     """Every LDPC kernel call inside the block is recorded in the yielded
-    sink: {"fn", "x", "args", "kw", "out"} per call."""
+    sink: {"fn", "x", "args", "kw", "out"} per call, in ``sink.eager`` for
+    a launch (eager, or of a replay of a program captured inside the
+    block), in ``sink.graph`` for a call made while a graph is captured."""
     sink = types.SimpleNamespace(graph=[], eager=[])
     saved = sch.encoder_cuda, sch.decoder_cuda, slot_programs.decoder_cuda
+    capture, replay = graphs.Program._capture, graphs.Program._replay
+    spans: dict[int, tuple[int, int]] = {}
+
+    def tapped_capture(prog):
+        n0 = len(sink.graph)
+        capture(prog)
+        spans[id(prog)] = (n0, len(sink.graph))
+
+    def tapped_replay(prog):
+        # the graph shares its pool: its copies are read before the next
+        # replay of any program can overwrite them
+        out = replay(prog)
+        a, b = spans.get(id(prog), (0, 0))
+        sink.eager.extend(_copy(c) for c in sink.graph[a:b])
+        return out
+
     sch.encoder_cuda = _ModuleTap(encoder_cuda, "encode", sink)
     sch.decoder_cuda = _ModuleTap(decoder_cuda, "decode", sink)
     slot_programs.decoder_cuda = _ModuleTap(decoder_cuda, "decode", sink)
+    graphs.Program._capture = tapped_capture
+    graphs.Program._replay = tapped_replay
     try:
         yield sink
     finally:
         (sch.encoder_cuda, sch.decoder_cuda,
          slot_programs.decoder_cuda) = saved
+        graphs.Program._capture, graphs.Program._replay = capture, replay
 
 
 def launch_counts() -> dict[str, int]:

@@ -23,6 +23,7 @@ from srsran_project_23_5_tpu_torch.phy import pipeline
 from srsran_project_23_5_tpu_torch.phy.lower import lower_phy, prach_demod
 from srsran_project_23_5_tpu_torch.phy.upper import (pdcch, slot_programs, ssb,
                                                      upper_phy)
+from srsran_project_23_5_tpu_torch.utils import kernel_taps
 
 torch.set_num_threads(1)
 
@@ -186,14 +187,17 @@ def test_upper_phy_ul_slot_with_uci_and_harq_on_card_matches_cpu(cuda):
     for d, phy in phys.items():
         out[d] = []
         for i, (req, (rx, prach_rx)) in enumerate(zip(reqs, slots)):
-            d0 = decoder_cuda.decode.launches
+            d0, c0 = decoder_cuda.decode.launches, phy.graphs.captures
             inds = phy.process_ul_slot(
                 rx.to(d), req, slot_count=i,
                 prach_rx=None if prach_rx is None else prach_rx.to(d))
             if d == cuda:
+                # one launch per decode group and replay, and the eager
+                # warm-up's where the slot captured its program
                 groups = slot_programs.decode_groups(
                     slot_programs.signature(req)[0])
-                assert decoder_cuda.decode.launches - d0 == len(groups)
+                assert decoder_cuda.decode.launches - d0 == len(groups) * (
+                    1 + phy.graphs.captures - c0)
             out[d].append((inds, phy.last_ul_slot["pusch"]))
     for i, ((g, g_o), (c, c_o)) in enumerate(zip(out[cuda], out["cpu"])):
         assert [type(x) for x in g] == [type(x) for x in c]
@@ -510,58 +514,180 @@ def test_async_lower_phy_on_card_matches_cpu(cuda):
         assert float((b - grids[s]).abs().max()) < 1e-3
 
 
-class _Tap:
-    """A kernel wrapper's module as ``sch``/``slot_programs`` see it, its
-    kernel function keeping (name, inputs, outputs) of every call."""
-
-    def __init__(self, module, name, calls):
-        fn = getattr(module, name)
-        self._module = module
-
-        def call(x, *args, **kw):
-            out = fn(x, *args, **kw)
-            outs = out if isinstance(out, tuple) else (out,)
-            calls.append((name, x.clone(), args, kw,
-                          [o.clone() for o in outs]))
-            return out
-        setattr(self, name, call)
-
-    def __getattr__(self, name):
-        return getattr(self._module, name)
-
-
 @pytest.mark.cuda
-def test_gnb_app_loopback_on_card(cuda, monkeypatch):
+def test_gnb_app_loopback_on_card(cuda):
     """The gNB app's over-the-air loopback on the card (52 PRB, 160 slots,
     28 dB, 2+2 packets, the app's default platform): the UE reaches RRC
     ACTIVE with every packet delivered, both kernels ran, and every launch
-    equals its plain version on the same inputs."""
+    (eager, or of a replay of a captured program) equals its plain version
+    on the same inputs."""
     from srsran_project_23_5_tpu_torch.apps import gnb as app_gnb
-    from srsran_project_23_5_tpu_torch.phy.upper import sch
-    calls = []
-    monkeypatch.setattr(sch, "encoder_cuda",
-                        _Tap(encoder_cuda, "encode", calls))
-    monkeypatch.setattr(sch, "decoder_cuda",
-                        _Tap(decoder_cuda, "decode", calls))
-    monkeypatch.setattr(slot_programs, "decoder_cuda",
-                        _Tap(decoder_cuda, "decode", calls))
     gnb = app_gnb.Gnb(app_gnb.GnbConfig(
         slots=160, phy="loopback", ue_dl_packets=2, ue_ul_packets=2,
         snr_db=28.0, nof_prb=52))
     assert gnb._phy.device.type == "cuda"
-    rep = gnb.run()
+    with kernel_taps.tapped_kernels() as sink:
+        kernel_taps.reset_launch_counts()
+        rep = gnb.run()
+        launches = kernel_taps.launch_counts()
     assert rep["ue_rrc_state"] == "active", rep
     assert rep["ue_dl_rx_packets"] == rep["core_ul_rx_packets"] == 2, rep
     assert rep["phy_stats"]["rar_decoded"] == 1, rep
-    assert {c[0] for c in calls} == {"encode", "decode"}
-    plain = {"encode": encoder_cuda.encode_plain,
-             "decode": decoder_cuda.decode_plain}
-    for name, x, args, kw, outs in calls:
-        assert x.is_cuda
-        want = plain[name](x, *args, **kw)
-        want = want if isinstance(want, tuple) else (want,)
-        assert all(torch.equal(a, b) for a, b in zip(outs, want)), (
-            name, tuple(x.shape), args, kw)
+    assert {c["fn"] for c in sink.eager} == {"encode", "decode"}
+    assert sum(launches.values()) == len(sink.eager)
+    assert all(c["x"].is_cuda for c in sink.eager)
+    assert kernel_taps.mismatches(sink.eager) == []
+    assert gnb._phy.graphs.replays > 0 and gnb._phy.upper.graphs.replays > 0
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def _assert_replay_equals_eager(prog, got=None):
+    """The last replay of a program against its eager run on the same
+    inputs: bits and verdicts exact, floats within 1e-5 of max|ref|."""
+    got = _leaves(prog.out if got is None else got)
+    want = _leaves(prog.eager(*prog.inputs))
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        if a.dtype.is_floating_point or a.dtype.is_complex:
+            assert float((a - b).abs().max()) <= 1e-5 * float(
+                b.abs().max())
+        else:
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_upper_phy_replays_equal_eager(cuda):
+    """The tiny FAPI carrier's DL slots and both UL mixes through captured
+    programs: each replay equals the program's eager run on the same
+    inputs, on the slot that captured it and on later slots' data; the
+    launch counts grow by what the capture saw per replay; the DL grids
+    kept together are each their own slot's."""
+    car = fapi_carrier.tiny_carrier()
+    phy = upper_phy.UpperPhy(car.upper_phy, cuda)
+    cpu = upper_phy.UpperPhy(car.upper_phy, "cpu")
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    rng = np.random.default_rng(19)
+    grids = []
+    for slot in range(4):
+        req, data = fapi_carrier.dl_request(car, slot, rng)
+        e0, c0 = encoder_cuda.encode.launches, phy.graphs.captures
+        grids.append((phy.process_dl_slot(req, data),
+                      cpu.process_dl_slot(req, data)))
+        prog = phy.dl_programs.get(slot_programs.dl_signature(req)).program
+        assert prog.captured_launches == (len(req.pdsch_pdus), 0)
+        assert encoder_cuda.encode.launches - e0 == len(req.pdsch_pdus) * (
+            1 + phy.graphs.captures - c0)
+        _assert_replay_equals_eager(prog, grids[-1][0])
+        ul = fapi_carrier.ul_request(car, slot, full=slot % 2 == 0)
+        pay = fapi_carrier.ul_payloads(ul, rng)
+        rx, prach_rx = fapi_carrier.uplink(ul, pay, car, gen)
+        d0, r0 = decoder_cuda.decode.launches, phy.graphs.replays
+        inds = phy.process_ul_slot(rx, ul, slot_count=slot,
+                                   prach_rx=prach_rx)
+        prog = phy.ul_programs.get(slot_programs.signature(ul)).program
+        groups = slot_programs.decode_groups(slot_programs.signature(ul)[0])
+        assert prog.captured_launches == (0, len(groups))
+        assert phy.graphs.replays == r0 + 1
+        if slot >= 2:           # a replay of the graph slot - 2 captured
+            assert decoder_cuda.decode.launches - d0 == len(groups)
+        _assert_replay_equals_eager(prog)
+        checks = fapi_carrier.ul_checks(car, ul, pay, inds,
+                                        phy.last_ul_slot["pusch"])
+        assert all(checks.values()), (slot, checks)
+    assert phy.graphs.captures == 3 and phy.graphs.reserved_bytes() > 0
+    for got, want in grids:
+        assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(
+            want.abs().max())
+
+
+@pytest.mark.cuda
+def test_softbuffer_survives_other_replays_on_card(cuda):
+    """A HARQ softbuffer kept across another UE's slot (another replay on
+    the same graph pool) is unchanged, and its rv=2 combine passes."""
+    car = fapi_carrier.tiny_carrier()
+    phy = upper_phy.UpperPhy(car.upper_phy, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(20)
+    rng = np.random.default_rng(20)
+    first = fapi_carrier.ul_request(car, 1, full=False, harq_process=15)
+    pay = fapi_carrier.ul_payloads(first, rng)
+    rx, _ = fapi_carrier.uplink(first, pay, car, gen, snr_db=car.harq_snr_db)
+    phy.process_ul_slot(rx, first, slot_count=1)
+    rnti = first.pusch_pdus[0].config.rnti
+    kept = phy.softbuffers.get(rnti, 15).clone()
+    other = fapi_carrier.ul_request(car, 2, full=True)
+    opay = fapi_carrier.ul_payloads(other, rng)
+    orx, oprach = fapi_carrier.uplink(other, opay, car, gen)
+    phy.process_ul_slot(orx, other, slot_count=2, prach_rx=oprach)
+    assert torch.equal(phy.softbuffers.get(rnti, 15), kept)
+    retx = fapi_carrier.ul_request(car, 3, full=False, harq_process=15, rv=2,
+                                   new_data=False)
+    rx2, _ = fapi_carrier.uplink(retx, pay, car, gen, snr_db=car.harq_snr_db)
+    inds = phy.process_ul_slot(rx2, retx, slot_count=3)
+    assert fapi_carrier.ul_checks(car, retx, pay, inds, None)["crc"]
+
+
+@pytest.mark.cuda
+def test_ue_programs_replay_on_card_equal_the_cpu(cuda):
+    """The UE modem's programs on the card, on two slots (the second
+    replays the first's graphs on its own DM-RS and sequences): each
+    replay equals its eager run, and the outputs equal the same calls on
+    the CPU."""
+    from srsran_project_23_5_tpu_torch.apps import phy_loop
+    from srsran_project_23_5_tpu_torch.phy.upper import pucch, sch
+    from srsran_project_23_5_tpu_torch.utils import graphs as prog_graphs
+    pools = {d: prog_graphs.GraphPool(torch.device(d))
+             for d in ("cpu", "cuda")}
+    rng = np.random.default_rng(21)
+    nsc = 52 * 12
+    for slot in (3, 4):
+        pdsch = sch.ShConfig(rnti=0x4601, tbs=3240, qm=4, prb_start=4,
+                             nof_prb=20, dmrs_symbols=(2, 7, 11),
+                             slot_in_frame=slot)
+        f1 = pucch.PucchF1Config(prb=51, initial_cyclic_shift=3,
+                                 slot_in_frame=slot)
+        f2 = pucch.PucchF2Config(prb_start=40, nof_prb=2, rnti=0x4601,
+                                 nof_uci_bits=4, slot_in_frame=slot)
+        tb = torch.from_numpy(rng.integers(0, 2, 3240).astype(np.int8))
+        g = sch.pdsch_transmit(tb[None], pdsch,
+                               torch.zeros((1, 14, nsc),
+                                           dtype=torch.complex64))[0]
+        rx = g + torch.from_numpy(_noise(rng, (14, nsc), 0.05))
+        outs = {}
+        for d, pool in pools.items():
+            bits, ok = phy_loop.ue_pdsch_receive(rx.to(d), pdsch, pool)
+            grid = torch.zeros((14, nsc), dtype=torch.complex64, device=d)
+            grid = phy_loop.ue_pusch_transmit(tb[:3240].to(d), pdsch, grid,
+                                              pool)
+            grid = phy_loop.ue_pucch_f1_transmit(
+                torch.ones(1, dtype=torch.int8, device=d), f1, grid, pool)
+            grid = phy_loop.ue_pucch_f2_transmit(
+                torch.tensor([1, 0, 1, 1], dtype=torch.int8, device=d), f2,
+                grid, pool)
+            outs[d] = (bits.cpu(), bool(ok), grid.cpu())
+            if d == "cuda":
+                for prog in pool._cached.values():
+                    _assert_replay_equals_eager(prog)
+        assert outs["cuda"][1] and outs["cpu"][1]
+        assert torch.equal(outs["cuda"][0], outs["cpu"][0])
+        assert torch.equal(outs["cuda"][0], tb)
+        ref = outs["cpu"][2]
+        assert float((outs["cuda"][2] - ref).abs().max()) <= 1e-5 * float(
+            ref.abs().max())
+    assert pools["cuda"].captures == 4
+
+
+def _noise(rng, shape, sigma):
+    return (sigma / np.sqrt(2) * (rng.standard_normal(shape) + 1j
+                                  * rng.standard_normal(shape))
+            ).astype(np.complex64)
 
 
 @pytest.mark.cuda

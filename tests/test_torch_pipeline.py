@@ -209,6 +209,29 @@ def test_scan_reused_dict_new_tensor():
                                                           rel=1e-6)
 
 
+def test_scan_payload_changed_in_place():
+    """A payload tensor changed in place and submitted again gives the
+    result of a fresh tensor with those values, as the JAX pipeline, which
+    computes on the values passed."""
+    pipe, fresh_pipe = _toy_pipe(), _toy_pipe()
+    pay = _toy_payloads(1)
+    pipe.warmup_scan(pay)
+    fresh_pipe.warmup_scan(_toy_payloads(1))
+    for p in (pipe, fresh_pipe):
+        p.fetch_accumulated()
+    for seed in (2, 3):
+        new = _toy_payloads(seed)["x"]
+        pay["x"].copy_(new)
+        pipe.submit_scan(pay, 7)
+        fresh_pipe.submit_scan({"x": new.clone()}, 7)
+        got, want = pipe.fetch_accumulated(), fresh_pipe.fetch_accumulated()
+        assert got == want
+        want_ok, want_sum = _eager_scan(_TOY.run, {"x": new},
+                                        pipe.scan_noise(7))
+        assert got[0] == want_ok and got[1] * got[2] == pytest.approx(
+            want_sum, rel=1e-6)
+
+
 def test_scan_counts_and_latency():
     pipe = _toy_pipe()
     pay = _toy_payloads(4)
