@@ -176,19 +176,39 @@ Phases, one line each:
    dB, every carrier ok and within 1.5 dB, verdicts equal to
    ``multi_carrier_step`` on the same inputs and SINRs within 1e-3 dB;
    the halo on an axis of one shard is the slot's own tail; one 273-PRB
-   mixed carrier through ``entry.mixed_carrier_step``.  (b) gloo, two
-   spawned ranks that both use this card (NCCL cannot put two ranks on one
-   GPU): ``entry.dryrun_multichip(2)``, one 273-PRB mixed carrier per rank
-   verified in-program at 20 dB, ``global_verdict`` equal on both ranks;
-   (c) in the same ranks, the slot-sharded PRACH stream across the two
+   mixed carrier through ``entry.mixed_carrier_step``.  (b) gloo, four
+   spawned ranks that all use this card (NCCL cannot put two ranks on one
+   GPU): ``entry.dryrun_multichip(4)``, one 273-PRB mixed carrier per rank
+   verified in-program at 20 dB, ``global_verdict`` equal on every rank;
+   (c) in the same ranks, the slot-sharded PRACH stream across the four
    ranks at the short geometry of ``tests/test_slot_stream.py`` and at the
    format-0 window at 122.88 MHz (110,976 samples against a 61,440-sample
    slot, begun in the previous rank's slot): windows equal to the
    unsharded demodulation within 1e-4 relative, the preamble detected on
    every slot that has one.  Every LDPC launch of every rank is tapped and
    bit-exact against its plain version on the card, each shape timed.
-   Printed: ms per carrier step at one and at two ranks (two ranks share
-   one card: not a scaling figure) and the halo's time.
+   Printed: ms per carrier step at one and at four ranks (four ranks share
+   one card: not a scaling figure) and the halo's time.  The dry run
+   ends with its weak-scaling curve, which phase 24 reads;
+24. weak-scaling — the curve of phase 23's dry run,
+   ``entry.weak_scaling(4, "gloo", "cuda:0")``: one 273-PRB mixed carrier
+   per rank at 1, 2 and 4 gloo ranks that share this card (contention,
+   not a scaling figure), each point one spawn, each rank timing 7 steps
+   (step r on seeds + r, every carrier of every step ok), every carrier
+   of the tapped step within 1.5 dB, one global verdict per point; every
+   rank's LDPC launches held against plain on the card and each shape
+   timed.  Printed: the curve (ms per step, the slowest rank's median,
+   and t1/tn), each rank's median and min-max step time, spawn-and-run
+   seconds and peak reserved MiB per rank;
+25. examples — the four examples through their ``main`` with no
+   ``--device`` (the card is their default): ``mixed_slot_demo --prb
+   273`` (every channel ok; 4 encoder, 2 decoder launches; a warm second
+   run, checked alike), ``phy_loopback`` at its defaults (52 PRB, 16QAM, R=0.5, 15 dB)
+   and at ``--prb 273 --qm 6 --rate 0.65 --snr-db 20`` (8 slots each,
+   every CRC ok, mean SINR within 1.5 dB, 8 + 8 launches), ``radio_ssb``
+   (SSBs at slots 0 and 20 detected, PBCH ok) and ``rrc_attach_demo``
+   (ACTIVE, 8 messages); every LDPC launch bit-exact against its plain
+   version and each shape timed with its bound.
 
 Every timed shape prints the kernel's device time, its bound (the larger
 of bytes over 3.35 TB/s and operations over 67 TFLOP/s) and the share of
@@ -202,6 +222,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import re
@@ -215,6 +236,9 @@ import torch
 
 from srsran_project_23_5_tpu_torch import entry, ofh, radio, ru
 from srsran_project_23_5_tpu_torch.apps import gnb as app_gnb
+from srsran_project_23_5_tpu_torch.examples import (mixed_slot_demo,
+                                                    phy_loopback, radio_ssb,
+                                                    rrc_attach_demo)
 from srsran_project_23_5_tpu_torch.fapi import messages as fapi
 from srsran_project_23_5_tpu_torch.fapi import scf, validators
 from srsran_project_23_5_tpu_torch.models import (fapi_carrier, gnb_flagship,
@@ -2526,6 +2550,7 @@ def phase_fronthaul(dev, card: str, car=None) -> dict:
 
 SCALE_OUT_CARRIERS = 8
 SCALE_OUT_HALO = 4096
+SCALE_OUT_RANKS = 4         # gloo ranks of the dry run, all on this card
 
 
 def _host_calls(dev, calls: list[dict]) -> list[dict]:
@@ -2534,11 +2559,25 @@ def _host_calls(dev, calls: list[dict]) -> list[dict]:
             for c in calls]
 
 
+def _rank_launches(label: str, results: list[dict]) -> dict:
+    """The summed launch counts of mixed carrier steps, one per rank
+    result, each 4 encoder and 2 decoder launches, all tapped."""
+    launches = {"encoder": 0, "decoder": 0}
+    for res in results:
+        _check(res["launches"] == {"encoder": 4, "decoder": 2}
+               and len(res["calls"]) == 6, f"{label}: mixed carrier "
+               f"launches {res['launches']}, {len(res['calls'])} tapped")
+        for k in launches:
+            launches[k] += res["launches"][k]
+    return launches
+
+
 def phase_scale_out(dev, card: str, car=None, mixed=None) -> dict:
     """The flagship carrier step on NCCL at one rank, the mixed dry run on
-    gloo at two ranks sharing this card, and the slot-sharded PRACH stream
-    in the same two ranks; every LDPC launch tapped and held against its
-    plain version."""
+    gloo at SCALE_OUT_RANKS ranks sharing this card, and the slot-sharded
+    PRACH stream in the same ranks; every LDPC launch tapped and held
+    against its plain version.  Returns the dry run's weak-scaling curve
+    too (its launches are phase 24's)."""
     car = car or gnb_flagship.default_carrier()
     mixed = mixed or gnb_mixed.default_mixed()
     c = SCALE_OUT_CARRIERS
@@ -2570,29 +2609,27 @@ def phase_scale_out(dev, card: str, car=None, mixed=None) -> dict:
     _check(bool(a1["ok"].all()) and a1["verdict"][0],
            f"scale-out nccl x1: mixed carrier {a1['ok'].tolist()}")
 
-    # ---- (b) + (c) gloo, two spawned ranks on this card
+    # ---- (b) + (c) gloo, spawned ranks on this card
     torch.cuda.empty_cache()
     geom = entry.format0_prach(mixed.mu, mixed.nfft)
     _check(geom[:5] == (61440, 98304, 839, 12672, -55296),
            f"format-0 geometry at 122.88 MHz: {geom}")
+    n = SCALE_OUT_RANKS
     t0 = time.perf_counter()
-    ranks = entry.dryrun_multichip(2, backend="gloo", device=str(dev),
-                                   cfg=mixed)
-    spawn_s = time.perf_counter() - t0
+    ranks, curve = entry.dryrun_multichip(n, backend="gloo", device=str(dev),
+                                          cfg=mixed)
+    secs = time.perf_counter() - t0
+    curve_s = sum(p["spawn_s"] for p in curve)
     b = [r[0] for r in ranks]
-    launches = dict(a["launches"])
-    for res in [a1, *b]:
-        _check(res["launches"] == {"encoder": 4, "decoder": 2}
-               and len(res["calls"]) == 6, f"scale-out: mixed carrier "
-               f"launches {res['launches']}, {len(res['calls'])} tapped")
-        for k in launches:
-            launches[k] += res["launches"][k]
+    mixed_launches = _rank_launches("scale-out", [a1, *b])
+    launches = {k: a["launches"][k] + mixed_launches[k]
+                for k in mixed_launches}
     _check(a["launches"] == {"encoder": 1, "decoder": 1},
            f"scale-out nccl x1: flagship launches {a['launches']}")
     times_a, counts_a = _app_launches(card, "scale-out nccl x1",
                                       types.SimpleNamespace(
                                           eager=a["calls"] + a1["calls"]))
-    times_b, counts_b = _app_launches(card, "scale-out gloo x2",
+    times_b, counts_b = _app_launches(card, f"scale-out gloo x{n}",
                                       types.SimpleNamespace(eager=[
                                           call for r in b for call in
                                           _host_calls(dev, r["calls"])]))
@@ -2604,19 +2641,165 @@ def phase_scale_out(dev, card: str, car=None, mixed=None) -> dict:
           f"({a['step_ms'] / c:.2f} ms per carrier); mixed carrier "
           f"{a1['step_ms']:.2f} ms per step; the halo of one shard is its "
           f"own tail; launches {counts_a} on {card}")
-    print(f"[scale-out] (b) gloo, 2 ranks on one card ({dev}; NCCL cannot "
+    print(f"[scale-out] (b) gloo, {n} ranks on one card ({dev}; NCCL cannot "
           f"put two ranks on one GPU): mixed {mixed.nof_prb} PRB, 1 carrier "
           f"per rank, ok {b[0]['ok'].tolist()}, SINR "
           f"{[round(v, 2) for v in b[0]['sinr'].tolist()]} dB, "
-          f"global verdict {b[0]['verdict']} on both ranks; ms per carrier "
-          f"step per rank {[round(r['step_ms'], 2) for r in b]} (2 ranks "
+          f"global verdict {b[0]['verdict']} on every rank; ms per carrier "
+          f"step per rank {[round(r['step_ms'], 2) for r in b]} ({n} ranks "
           f"share one card, not a scaling figure; 1 rank: "
-          f"{a1['step_ms']:.2f}); spawn + run {spawn_s:.1f} s; launches "
-          f"{counts_b} on {card}")
+          f"{a1['step_ms']:.2f}); spawn + run {secs - curve_s:.1f} s, then "
+          f"the curve {curve_s:.1f} s; launches {counts_b} on {card}")
     print(f"[scale-out] every launch bit-exact against its plain version; "
           + "; ".join(f"{_fmt(t)} x{t['launches']}"
                       for t in times_a + times_b) + f" on {card}")
-    return {"launches": launches, "times": times_a + times_b}
+    return {"launches": launches, "times": times_a + times_b,
+            "curve": curve}
+
+
+def phase_weak_scaling(dev, card: str, curve: list[dict], cfg=None) -> dict:
+    """The weak-scaling curve of phase 23's dry run
+    (``entry.weak_scaling(SCALE_OUT_RANKS, "gloo", dev)``): 1, 2 and 4 gloo
+    ranks sharing this card, one mixed carrier per rank; every rank's LDPC
+    launches held against their plain versions again here, each shape
+    timed."""
+    cfg = cfg or gnb_mixed.default_mixed()
+    secs = sum(p["spawn_s"] for p in curve)
+    _check([p["ranks"] for p in curve] == [1, 2, SCALE_OUT_RANKS],
+           f"weak-scaling points {[p['ranks'] for p in curve]}")
+    results = [m for p in curve for m in p["results"]]
+    launches = _rank_launches("weak-scaling", results)
+    times, counts = _app_launches(card, "weak-scaling", types.SimpleNamespace(
+        eager=[c for r in results for c in _host_calls(dev, r["calls"])]))
+    points = []
+    for p in curve:
+        ms = [round(m["step_ms"], 2) for m in p["results"]]
+        spread = [(round(min(m["step_times"]), 2),
+                   round(max(m["step_times"]), 2)) for m in p["results"]]
+        mib = [round(m["peak_reserved"] / 2**20) for m in p["results"]]
+        points.append(f"{p['ranks']} ranks {p['s_per_step'] * 1e3:.2f} ms "
+                      f"per step (efficiency {p['efficiency']:.3f}; median "
+                      f"ms per rank {ms}, min-max {spread}; spawn + run "
+                      f"{p['spawn_s']:.1f} s; peak reserved MiB per rank "
+                      f"{mib})")
+    print(f"[weak-scaling] {cfg.nof_prb} PRB mixed carrier per rank, gloo "
+          f"ranks sharing {dev} (contention, not a scaling figure), "
+          f"{entry.CURVE_STEPS} steps per rank: "
+          + ", ".join(points)
+          + f"; phase {secs:.1f} s; launches {counts} on {card}")
+    print("[weak-scaling] every launch bit-exact against its plain version; "
+          + "; ".join(f"{_fmt(t)} x{t['launches']}" for t in times)
+          + f" on {card}")
+    return {"launches": launches, "times": times}
+
+
+def _example(label: str, main, argv: list[str]) -> dict:
+    """One example's ``main(argv)`` with its output kept and every LDPC
+    launch tapped; the counts set to 0 just before and read just after."""
+    out = io.StringIO()
+    with kernel_taps.tapped_kernels() as sink, \
+            contextlib.redirect_stdout(out):
+        kernel_taps.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_taps.launch_counts()
+    _check(sum(launches.values()) == len(sink.eager),
+           f"{label}: launches {launches}, {len(sink.eager)} tapped calls")
+    return {"res": res, "lines": out.getvalue().splitlines(), "wall": wall,
+            "sink": sink, "launches": launches}
+
+
+EXAMPLE_FULL_WIDTH = ["--prb", "273", "--qm", "6", "--rate", "0.65",
+                      "--snr-db", "20"]
+
+
+def phase_examples(dev, card: str, mixed_prb: int = 273,
+                   loopback_full=EXAMPLE_FULL_WIDTH) -> dict:
+    """The four examples through their ``main`` on the card (no --device:
+    the card is their default): the mixed slot demo at `mixed_prb`, the
+    PHY loopback at its defaults and at full width, the SSB radio and the
+    RRC attach; every verdict checked, every LDPC launch held against its
+    plain version and each shape timed."""
+    runs, launches, times = {}, {"encoder": 0, "decoder": 0}, []
+    mixed_argv = ["--prb", str(mixed_prb)]
+    for label, main, argv in (
+            ("mixed_slot_demo", mixed_slot_demo.main, mixed_argv),
+            ("phy_loopback", phy_loopback.main, []),
+            ("phy_loopback full", phy_loopback.main, loopback_full),
+            ("radio_ssb", radio_ssb.main, []),
+            ("rrc_attach_demo", rrc_attach_demo.main, [])):
+        r = runs[label] = _example(label, main, argv)
+        if r["sink"].eager:
+            t, r["counts"] = _app_launches(card, label, r["sink"])
+            times += t
+        for k in launches:
+            launches[k] += r["launches"][k]
+    m = runs["mixed_slot_demo"]
+    _check(m["res"]["device"] == str(dev) and bool(m["res"]["out"]["ok"])
+           and m["launches"] == {"encoder": 4, "decoder": 2},
+           f"mixed_slot_demo: ok {m['res']['out']['ok']} on "
+           f"{m['res']['device']}, launches {m['launches']}")
+    warm = _example("mixed_slot_demo warm", mixed_slot_demo.main, mixed_argv)
+    _check(bool(warm["res"]["out"]["ok"])
+           and warm["launches"] == {"encoder": 4, "decoder": 2},
+           f"mixed_slot_demo warm: ok {warm['res']['out']['ok']}, launches "
+           f"{warm['launches']}")
+    t, warm["counts"] = _app_launches(card, "mixed_slot_demo warm",
+                                      warm["sink"])
+    times += t
+    for k in launches:
+        launches[k] += warm["launches"][k]
+    for label in ("phy_loopback", "phy_loopback full"):
+        r = runs[label]["res"]
+        snr = 15.0 if label == "phy_loopback" else 20.0
+        sinr = [s for _, s, _ in r["slots"]]
+        _check(r["device"] == str(dev) and all(ok for ok, _, _ in r["slots"])
+               and abs(float(np.mean(sinr)) - snr) < 1.5
+               and runs[label]["launches"] == {"encoder": 8, "decoder": 8},
+               f"{label}: slots {r['slots']} on {r['device']}, launches "
+               f"{runs[label]['launches']}")
+    ssb_run = runs["radio_ssb"]["res"]
+    _check(ssb_run["device"] == str(dev) and ssb_run["tx_slots"] == [0, 20]
+           and [s for s, _, ok in ssb_run["found"] if ok] == [0, 20],
+           f"radio_ssb: sent {ssb_run['tx_slots']}, found "
+           f"{ssb_run['found']} on {ssb_run['device']}")
+    rrc_run = runs["rrc_attach_demo"]["res"]
+    _check(rrc_run["gnb_state"] == "active"
+           and len(rrc_run["messages"]) == 8,
+           f"rrc_attach_demo: {rrc_run['gnb_state']}, "
+           f"{len(rrc_run['messages'])} messages")
+    _check(runs["radio_ssb"]["launches"] == {"encoder": 0, "decoder": 0}
+           and runs["rrc_attach_demo"]["launches"]
+           == {"encoder": 0, "decoder": 0}, "an example without LDPC "
+           "launched an LDPC kernel")
+    loops = [f"{label}: {runs[label]['lines'][0]}, "
+             f"{len(runs[label]['res']['slots'])} slots CRC ok, SINR "
+             f"{min(s for _, s, _ in runs[label]['res']['slots']):.2f}-"
+             f"{max(s for _, s, _ in runs[label]['res']['slots']):.2f} dB, "
+             f"host ms per slot median "
+             f"{float(np.median(runs[label]['res']['ms'][1:])):.2f} (first "
+             f"{runs[label]['res']['ms'][0]:.1f}), launches "
+             f"{runs[label]['counts']}"
+             for label in ("phy_loopback", "phy_loopback full")]
+    print(f"[examples] mixed_slot_demo: {m['lines'][0]}; every channel ok, "
+          f"UL SINR {float(m['res']['out']['sinr_ul_db']):.2f} dB, first "
+          f"run {m['res']['run_s'] * 1e3:.1f} ms, warm "
+          f"{warm['res']['run_s'] * 1e3:.1f} ms; launches {m['counts']}, "
+          f"warm {warm['counts']} on {card}")
+    print("[examples] " + "; ".join(loops) + f" on {card}")
+    print(f"[examples] radio_ssb: SSBs sent at {ssb_run['tx_slots']}, "
+          f"detected with PSS corr "
+          f"{[round(c, 3) for _, c, _ in ssb_run['found']]} and PBCH ok, "
+          f"{runs['radio_ssb']['wall']:.2f} s for 40 slots; "
+          f"rrc_attach_demo: gNB {rrc_run['gnb_state']}, "
+          f"{len(rrc_run['messages'])} messages, "
+          f"{runs['rrc_attach_demo']['wall'] * 1e3:.1f} ms on {card}")
+    print("[examples] every launch bit-exact against its plain version; "
+          + "; ".join(f"{_fmt(t)} x{t['launches']}" for t in times)
+          + f" on {card}")
+    return {"launches": launches, "times": times}
 
 
 def _kernel_entry(name: str, kind: str, paths: list[dict],
@@ -2672,7 +2855,9 @@ def main() -> None:
     app_ta = phase_app_ta(dev, card)
     fh = phase_fronthaul(dev, card)
     so = phase_scale_out(dev, card)
-    paths = [s, m, u, v, h, lo, *scans, fs, acc, app, app_ta, fh, so]
+    ws = phase_weak_scaling(dev, card, so["curve"])
+    ex = phase_examples(dev, card)
+    paths = [s, m, u, v, h, lo, *scans, fs, acc, app, app_ta, fh, so, ws, ex]
     print(json.dumps({"kernels": [
         _kernel_entry("ldpc_encoder", "encoder", paths, enc_err),
         _kernel_entry("ldpc_decoder", "decoder", paths,

@@ -1,5 +1,6 @@
 """Entry points of the port: the forward step of the flagship slot,
-the carrier-sharded mixed step and the multi-rank dry run.
+the carrier-sharded mixed step, the multi-rank dry run and its
+weak-scaling curve.
 
 Counterpart of ``__graft_entry__.py`` at the repository root.  JAX runs the
 mesh in one process; here ``dryrun_multichip`` spawns one rank per carrier
@@ -8,8 +9,8 @@ programs, ``fn(rank, device, ...)`` for ``launch.spawn`` (or rank 0 of
 ``launch.world_of_one``): each builds its mesh over the world, runs one
 path and returns host-side results, with every LDPC kernel call tapped.
 
-    python -m srsran_project_23_5_tpu_torch.entry 2 --backend gloo \\
-        --device cuda:0        # two ranks sharing one card
+    python -m srsran_project_23_5_tpu_torch.entry 4 --backend gloo \\
+        --device cuda:0        # four ranks sharing one card
 """
 from __future__ import annotations
 
@@ -36,6 +37,8 @@ from .ran.constants import NRE
 from .utils import kernel_taps
 
 TIMED_STEPS = 3          # synchronised repeats behind each step time
+CURVE_STEPS = 7          # ... behind each point of the weak-scaling curve,
+                         # as in the JAX dry run's curve
 
 
 def entry(cfg: gnb_mixed.MixedSlotConfig | None = None,
@@ -118,22 +121,27 @@ def global_verdict(ok: torch.Tensor, sinr: torch.Tensor, mesh
     return bool(t[0] == 0), float(t[1] / t[2])
 
 
-def _step_ms(fn, device: torch.device) -> float:
-    """Median synchronised host time of fn() over TIMED_STEPS calls, each
-    begun by every rank together (a barrier), so that a collective inside
-    fn does not time a late peer."""
+def _step_times(fn, device: torch.device, steps: int) -> list[float]:
+    """Synchronised host times (ms) of fn(r) for r = 0 .. steps-1, each
+    call begun by every rank together (a barrier), so that a collective
+    inside fn does not time a late peer."""
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     times = []
-    for _ in range(TIMED_STEPS):
+    for r in range(steps):
         sync()
         dist.barrier()
         t0 = time.perf_counter()
-        fn()
+        fn(r)
         sync()
         times.append((time.perf_counter() - t0) * 1e3)
-    return float(np.median(times))
+    return times
+
+
+def _step_ms(fn, device: torch.device) -> float:
+    """Median of fn()'s ``_step_times`` over TIMED_STEPS calls."""
+    return float(np.median(_step_times(lambda r: fn(), device, TIMED_STEPS)))
 
 
 def _tapped(fn, device: torch.device) -> tuple:
@@ -190,19 +198,29 @@ def carrier_step_check(rank: int, device: torch.device,
 
 def mixed_step_check(rank: int, device: torch.device,
                      cfg: gnb_mixed.MixedSlotConfig, payloads: dict,
-                     seeds: torch.Tensor, noise=None) -> dict:
-    """``mixed_carrier_step`` over every rank (tapped, counted), its
-    ``global_verdict`` and its time."""
+                     seeds: torch.Tensor, noise=None,
+                     steps: int = TIMED_STEPS) -> dict:
+    """``mixed_carrier_step`` over every rank (tapped, counted) and its
+    ``global_verdict``, then `steps` timed steps, step r on seeds + r (as
+    the JAX curve times them; `noise`, when given, is the same on each):
+    their times (ms), their median, whether every carrier of every timed
+    step was ok, and (on a card) the process's peak reserved device
+    memory."""
     mesh = mesh_lib.make_mesh(device=device)
     step = mixed_carrier_step(cfg, mesh)
     (ok, sinr), taps = _tapped(lambda: step(payloads, seeds, noise),
                                device)
     shard = mesh_lib.carrier_sharding(mesh)
-    return {"ok": ok, "sinr": sinr, **taps,
-            "verdict": global_verdict(shard.local(ok), shard.local(sinr),
-                                      mesh),
-            "step_ms": _step_ms(lambda: step(payloads, seeds, noise),
-                                device)}
+    verdict = global_verdict(shard.local(ok), shard.local(sinr), mesh)
+    timed_ok = []
+    times = _step_times(
+        lambda r: timed_ok.append(step(payloads, seeds + r, noise)[0]),
+        device, steps)
+    return {"ok": ok, "sinr": sinr, **taps, "verdict": verdict,
+            "step_times": times, "step_ms": float(np.median(times)),
+            "steps_ok": all(bool(o.all()) for o in timed_ok),
+            "peak_reserved": (torch.cuda.max_memory_reserved(device)
+                              if device.type == "cuda" else None)}
 
 
 class PrachGeometry(NamedTuple):
@@ -303,39 +321,21 @@ def slot_stream_verdict(g: PrachGeometry, ranks: list[dict]) -> str:
             f"rank {[round(r['halo_ms'], 3) for r in ranks]}")
 
 
-def dryrun_multichip(n_devices: int, backend: str = "nccl",
-                     device: torch.device | str | None = None,
-                     cfg: gnb_mixed.MixedSlotConfig | None = None) -> list:
-    """Run the FULL MIXED carrier step on `n_devices` ranks, one carrier
-    each (default: the 273-PRB, 100 MHz carrier with 2×PDSCH (one 2-layer
-    MIMO) + PDCCH×2 + SSB + CSI-RS down and 2×PUSCH (one 2×2) + PUCCH F1 +
-    PRACH up), verified in-program at the config's SNR, then the slot-axis
-    ring-halo PRACH at the short geometry and the format-0 long one.
-
-    Raises unless every carrier is ok, the mean SINR is within 1.5 dB of
-    the SNR, ``global_verdict`` agrees on every rank, every LDPC kernel
-    launch equals its plain version and every boundary window is right; prints one line for each.  backend and device go to
-    ``launch.spawn`` (``backend="gloo", device="cuda:0"`` puts every rank on
-    one card).  Returns each rank's results: ``mixed_step_check``'s, then
-    ``slot_stream_check``'s for both geometries.
-    """
-    cfg = cfg or gnb_mixed.default_mixed()
-    payloads = gnb_mixed.make_payloads(cfg, np.random.default_rng(0),
-                                       n_devices, "cpu")
-    seeds = torch.arange(n_devices)
-    geoms = (SHORT_PRACH, format0_prach(cfg.mu, cfg.nfft))
-    ranks = launch.spawn(
-        n_devices, launch.run_all,
-        [(mixed_step_check, (cfg, payloads, seeds))]
-        + [(slot_stream_check, (g,)) for g in geoms],
-        backend=backend, device=device)
-    mixed = [r[0] for r in ranks]
+def mixed_verdict(cfg: gnb_mixed.MixedSlotConfig, mixed: list[dict]
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gathered (ok, sinr) of ``mixed_step_check``'s results, one per
+    rank.  Raises unless the ranks gathered the same verdicts, every
+    carrier is ok (on the tapped step and on every timed one), the mean SINR is within 1.5 dB of the SNR, every LDPC
+    kernel launch equals its plain version and ``global_verdict`` is the
+    same on every rank and agrees with the gathered verdicts."""
     ok, sinr = mixed[0]["ok"], mixed[0]["sinr"]
     if not all(torch.equal(m["ok"], ok) and torch.equal(m["sinr"], sinr)
                for m in mixed):
         raise AssertionError("the ranks gathered different verdicts")
     if not ok.all():
         raise AssertionError(f"mixed loopback failed on some carriers: {ok}")
+    if not all(m["steps_ok"] for m in mixed):
+        raise AssertionError("a timed step failed on some carriers")
     if abs(float(sinr.mean()) - cfg.snr_db) >= 1.5:
         raise AssertionError(f"mean SINR {float(sinr.mean()):.2f} dB at "
                              f"{cfg.snr_db} dB")
@@ -351,13 +351,117 @@ def dryrun_multichip(n_devices: int, backend: str = "nccl",
     if not all_ok or abs(mean - float(sinr.double().mean())) > 1e-9:
         raise AssertionError(f"global verdict ({all_ok}, {mean}) for "
                              f"ok={ok.tolist()}, sinr={sinr.tolist()}")
+    return ok, sinr
+
+
+def weak_scaling(n_devices: int, backend: str = "nccl",
+                 device: torch.device | str | None = None,
+                 cfg: gnb_mixed.MixedSlotConfig | None = None) -> list[dict]:
+    """The weak-scaling curve of the carrier-sharded mixed step (the
+    counterpart of the curve in ``__graft_entry__._dryrun_bonus``): one
+    carrier per rank (default: the 273-PRB carrier of ``default_mixed``),
+    payloads from ``make_payloads(cfg, default_rng(1), n)``, at n = 1,
+    min(cards, n_devices), max(2, n_devices // 2) and n_devices ranks.
+    "cards" counts the devices the ranks are spread over (``backend`` and
+    ``device`` as for ``launch.spawn``: one ``cuda:i`` puts every gloo rank
+    on that card).  Each point is one ``launch.spawn`` of
+    ``mixed_step_check``, the points one after another; each rank times
+    CURVE_STEPS synchronised steps after its tapped one, step r on seeds +
+    r, as the JAX curve does.
+
+    A point's time is the largest of its ranks' median step times (a step
+    ends when its slowest rank does); the efficiency is t1 / tn.  Every
+    point must pass ``mixed_verdict``.  Prints the curve in the JAX dry
+    run's format with a note of the cards, the backend and the points that
+    put several ranks on one device (contention, not a scaling figure),
+    then for each point every rank's median and min-max step time, its
+    spawn-and-run seconds and peak reserved memory per rank.
+
+    Unlike the JAX curve there is no wall-clock budget and no point is
+    skipped: ``launch.spawn``'s deadline bounds each point, and a point
+    that fails, dies or times out raises.  Returns one dict per point:
+    {"ranks", "s_per_step", "efficiency", "spawn_s", "results"}."""
+    cfg = cfg or gnb_mixed.default_mixed()
+    devices = launch.rank_devices(n_devices, backend, device)
+    cards = len(set(devices))
+    points = sorted(n for n in {1, min(cards, n_devices),
+                                max(2, n_devices // 2), n_devices}
+                    if n <= n_devices)
+    curve = []
+    for n in points:
+        payloads = gnb_mixed.make_payloads(cfg, np.random.default_rng(1), n,
+                                           "cpu")
+        t0 = time.perf_counter()
+        mixed = launch.spawn(n, mixed_step_check, cfg, payloads,
+                             torch.arange(n), None, CURVE_STEPS,
+                             backend=backend, device=device)
+        spawn_s = time.perf_counter() - t0
+        mixed_verdict(cfg, mixed)
+        curve.append({"ranks": n, "spawn_s": spawn_s, "results": mixed,
+                      "s_per_step": max(m["step_ms"] for m in mixed) / 1e3})
+    for p in curve:
+        p["efficiency"] = curve[0]["s_per_step"] / p["s_per_step"]
+    # rank r of any point runs on devices[r]
+    shared = [n for n in points if n > len(set(devices[:n]))]
+    note = (f"points {shared} put several ranks on one device: contention, "
+            f"not a scaling figure" if shared else "a device per rank")
+    print("weak_scaling(ndev, s/step, efficiency): "
+          + ", ".join(f"({p['ranks']}, {p['s_per_step']:.3f}, "
+                      f"{p['efficiency']:.2f})" for p in curve)
+          + f"  [{torch.cuda.device_count()} cards, ranks on "
+          f"{', '.join(sorted({str(d) for d in devices}))}, backend "
+          f"{backend}; {note}]", flush=True)
+    def spread(m):
+        return round(min(m["step_times"]), 2), round(max(m["step_times"]), 2)
+    print(f"weak_scaling points ({CURVE_STEPS} steps per rank): " + "; ".join(
+        f"{p['ranks']} ranks: step ms per rank median "
+        f"{[round(m['step_ms'], 2) for m in p['results']]}, min-max "
+        f"{[spread(m) for m in p['results']]}, spawn + run "
+        f"{p['spawn_s']:.1f} s"
+        + ("" if p["results"][0]["peak_reserved"] is None else
+           f", peak reserved MiB per rank "
+           f"{[round(m['peak_reserved'] / 2**20) for m in p['results']]}")
+        for p in curve), flush=True)
+    return curve
+
+
+def dryrun_multichip(n_devices: int, backend: str = "nccl",
+                     device: torch.device | str | None = None,
+                     cfg: gnb_mixed.MixedSlotConfig | None = None
+                     ) -> tuple[list, list[dict]]:
+    """Run the FULL MIXED carrier step on `n_devices` ranks, one carrier
+    each (default: the 273-PRB, 100 MHz carrier with 2×PDSCH (one 2-layer
+    MIMO) + PDCCH×2 + SSB + CSI-RS down and 2×PUSCH (one 2×2) + PUCCH F1 +
+    PRACH up), verified in-program at the config's SNR, then the slot-axis
+    ring-halo PRACH at the short geometry and the format-0 long one, then
+    the ``weak_scaling`` curve of the same step.
+
+    Raises unless the mixed step passes ``mixed_verdict``, every boundary
+    window is right and every point of the curve passes; prints one line
+    for each, then the curve.  backend and device go to ``launch.spawn``
+    (``backend="gloo", device="cuda:0"`` puts every rank on one card).
+    Returns (each rank's results: ``mixed_step_check``'s, then
+    ``slot_stream_check``'s for both geometries; the curve).
+    """
+    cfg = cfg or gnb_mixed.default_mixed()
+    payloads = gnb_mixed.make_payloads(cfg, np.random.default_rng(0),
+                                       n_devices, "cpu")
+    seeds = torch.arange(n_devices)
+    geoms = (SHORT_PRACH, format0_prach(cfg.mu, cfg.nfft))
+    ranks = launch.spawn(
+        n_devices, launch.run_all,
+        [(mixed_step_check, (cfg, payloads, seeds))]
+        + [(slot_stream_check, (g,)) for g in geoms],
+        backend=backend, device=device)
+    mixed = [r[0] for r in ranks]
+    ok, sinr = mixed_verdict(cfg, mixed)
     print(f"dryrun_multichip({n_devices}): ok={ok.tolist()} "
           f"sinr={[round(v, 1) for v in sinr.tolist()]}; ms per carrier "
           f"step per rank {[round(m['step_ms'], 2) for m in mixed]}",
           flush=True)
     for i, g in enumerate(geoms):
         print(slot_stream_verdict(g, [r[1 + i] for r in ranks]), flush=True)
-    return ranks
+    return ranks, weak_scaling(n_devices, backend, device, cfg)
 
 
 def main() -> None:

@@ -404,7 +404,8 @@ def channels(device: torch.device):
 def noise_sigma(car: FapiCarrier, snr_db: float) -> float:
     """Standard deviation of each of I and Q of the baseband noise that
     gives a per-RE SNR of snr_db on unit-power REs after the nfft-point
-    OFDM demodulation."""
+    OFDM demodulation (only ``car.nfft`` is read: any carrier config
+    serves)."""
     return math.sqrt(car.nfft) * 10 ** (-snr_db / 20) / math.sqrt(2.0)
 
 

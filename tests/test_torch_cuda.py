@@ -756,8 +756,8 @@ def test_dryrun_two_gloo_ranks_share_the_card(cuda):
     """Two spawned gloo ranks on cuda:0 run one tiny mixed carrier each and
     the slot-sharded PRACH stream; each rank launched 4 encodes and 2
     decodes, every one bit-exact."""
-    ranks = entry.dryrun_multichip(2, backend="gloo", device="cuda:0",
-                                   cfg=gnb_mixed.tiny_mixed())
+    ranks, _ = entry.dryrun_multichip(2, backend="gloo", device="cuda:0",
+                                      cfg=gnb_mixed.tiny_mixed())
     for mixed, short, long_ in ranks:
         assert mixed["launches"] == {"encoder": 4, "decoder": 2}
         assert len(mixed["calls"]) == 6 and mixed["mismatches"] == []

@@ -2,7 +2,7 @@
 
 JAX runs its meshes on the conftest's 8 virtual CPU devices, as its own
 tests do; the port runs real ranks, gloo on the CPU, spawned by
-``parallel.launch`` (three spawns in this file, each serving several
+``parallel.launch`` (five spawns in this file, most serving several
 tests).  The same numpy inputs go through both:
 
 - the mesh coordinates of ``make_mesh(4)`` and ``make_mesh_2d(2, 2)``;
@@ -16,7 +16,9 @@ tests).  The same numpy inputs go through both:
 - ``mixed_carrier_step(tiny_mixed)``, 2 ranks × 1 carrier, on the JAX
   ``PRNGKey(s)`` draws against JAX ``slot_fn_for_pipeline`` per carrier: ok
   equal, SINR within 0.05 dB; ``global_verdict`` equal on both ranks;
-- ``dryrun_multichip`` at 2 ranks on ``tiny_mixed``;
+- ``dryrun_multichip`` at 2 ranks on ``tiny_mixed``, with its weak-scaling
+  curve at 1 and 2 ranks (two more spawns) in the JAX dry run's format; a
+  point that fails or times out raises;
 - ``entry(tiny_mixed)``'s baseband against the same JAX op sequence,
   within 1e-5 of its largest sample (the OFDM tolerance);
 - the refusals: NCCL with more ranks than cards, an indivisible carrier
@@ -25,6 +27,9 @@ tests).  The same numpy inputs go through both:
 The JAX receiver on the CPU decodes with its XLA decoder, so the loopback
 comparisons are made where every codeblock converges.
 """
+import contextlib
+import io
+import re
 import types
 
 import numpy as np
@@ -223,21 +228,97 @@ def test_global_verdict_equal_on_both_ranks(mixed_two):
                                     dtype=np.float64))) < 1e-9
 
 
-def test_dryrun_multichip_two_ranks(capsys):
-    """The dry run's verdict lines at 2 ranks on tiny_mixed; every rank
-    returns its tapped kernel calls, no launch on the CPU."""
-    cfg = tmixed.tiny_mixed()
-    ranks = tentry.dryrun_multichip(2, backend="gloo", device="cpu",
-                                    cfg=cfg)
-    out = capsys.readouterr().out.splitlines()
+@pytest.fixture(scope="module")
+def dryrun_two():
+    """``dryrun_multichip`` at 2 ranks on tiny_mixed, its printed lines, and
+    the curve it returned (points 1 and 2: two more spawns)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        ranks, curve = tentry.dryrun_multichip(2, backend="gloo",
+                                               device="cpu",
+                                               cfg=tmixed.tiny_mixed())
+    return {"ranks": ranks, "out": out.getvalue().splitlines(),
+            "curve": curve}
+
+
+def test_dryrun_multichip_two_ranks(dryrun_two):
+    """The dry run's verdict lines at 2 ranks on tiny_mixed, then the
+    curve; every rank returns its tapped kernel calls, no launch on the
+    CPU."""
+    out = dryrun_two["out"]
     assert out[0].startswith("dryrun_multichip(2): ok=[True, True]")
     assert out[1].startswith("slot_stream_prach(2 shards, L=139")
     assert out[2].startswith("slot_stream_prach(2 shards, L=839")
-    for rank in ranks:
+    assert out[3].startswith("weak_scaling(ndev, s/step, efficiency): ")
+    assert out[4].startswith("weak_scaling points (7 steps per rank): 1 "
+                             "ranks: step ms per rank median [")
+    for rank in dryrun_two["ranks"]:
         mixed, short, long_ = rank
         assert mixed["launches"] == {"encoder": 0, "decoder": 0}
         assert len(mixed["calls"]) == 6 and mixed["step_ms"] > 0
+        assert len(mixed["step_times"]) == tentry.TIMED_STEPS
+        assert mixed["peak_reserved"] is None
         assert short["halo_ms"] > 0 and long_["rel_err"] <= 1e-4
+
+
+# the JAX dry run's line (__graft_entry__._dryrun_bonus)
+JAX_CURVE = re.compile(r"weak_scaling\(ndev, s/step, efficiency\): "
+                       r"((?:\(\d+, \d+\.\d{3}, \d+\.\d{2}\)(?:, )?)+)  \[")
+
+
+def test_weak_scaling_curve_two_ranks(dryrun_two):
+    """Points 1 and 2 (gloo ranks on the CPU, one device): every point ok
+    under ``mixed_verdict``, each rank's time the median of the JAX
+    curve's 7 steps (all ok), the point's the slowest rank's, efficiency
+    t1 / tn, and the line in the JAX dry run's format whose note marks the
+    2-rank point as contention."""
+    curve = dryrun_two["curve"]
+    assert [p["ranks"] for p in curve] == [1, 2]
+    for p in curve:
+        assert len(p["results"]) == p["ranks"] and p["spawn_s"] > 0
+        assert all(bool(m["ok"].all()) and m["verdict"][0] and m["steps_ok"]
+                   and not m["mismatches"] for m in p["results"])
+        for m in p["results"]:
+            assert len(m["step_times"]) == tentry.CURVE_STEPS == 7
+            assert m["step_ms"] == float(np.median(m["step_times"]))
+        assert p["s_per_step"] == max(m["step_ms"]
+                                      for m in p["results"]) / 1e3
+        assert p["efficiency"] == curve[0]["s_per_step"] / p["s_per_step"]
+    line = dryrun_two["out"][3]
+    m = JAX_CURVE.match(line)
+    assert m, line
+    got = re.findall(r"\((\d+), ([\d.]+), ([\d.]+)\)", m.group(1))
+    assert got == [(str(p["ranks"]), f"{p['s_per_step']:.3f}",
+                    f"{p['efficiency']:.2f}") for p in curve]
+    assert "backend gloo" in line and "points [2] put several ranks" in line
+
+
+def _point(ok=True):
+    """A rank's ``mixed_step_check`` result, as a stand-in spawn returns."""
+    return {"ok": torch.tensor([ok]), "sinr": torch.tensor([20.0]),
+            "mismatches": [], "verdict": (ok, 20.0), "steps_ok": ok,
+            "step_times": [5.0] * 7, "step_ms": 5.0, "peak_reserved": None}
+
+
+@pytest.mark.parametrize("fault", ["rank", "deadline", "carrier"])
+def test_weak_scaling_failed_point_raises(fault, monkeypatch, capsys):
+    """A point whose rank fails, whose spawn times out or whose carrier is
+    not ok raises: it never drops out of the curve, and no curve prints."""
+    def spawn(n, fn, *args, backend, device):
+        assert fn is tentry.mixed_step_check and backend == "gloo"
+        assert args[-1] == tentry.CURVE_STEPS
+        if n == 1:
+            return [_point()]
+        if fault == "rank":
+            raise RuntimeError("rank 1 of 2 failed")
+        if fault == "deadline":
+            raise TimeoutError("ranks [1] gave no result within 300 s")
+        return [_point(), _point(ok=False)]
+    monkeypatch.setattr(tentry.launch, "spawn", spawn)
+    with pytest.raises({"rank": RuntimeError, "deadline": TimeoutError,
+                        "carrier": AssertionError}[fault]):
+        tentry.weak_scaling(2, "gloo", "cpu", tmixed.tiny_mixed())
+    assert "weak_scaling" not in capsys.readouterr().out
 
 
 # ----------------------------------------------------------------- entry

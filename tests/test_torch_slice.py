@@ -208,8 +208,9 @@ def test_convert_refuses_unported_fields(cls, field, value):
 
 def test_port_imports_no_jax():
     """Every module of the port (found by walking the package, the apps
-    among them) and chip_smoke.py's imports load neither JAX nor anything
-    of the JAX package."""
+    and the examples among them) and chip_smoke.py's imports load neither
+    JAX nor anything of the JAX package, and importing them prints
+    nothing."""
     code = ("import importlib, pkgutil, sys\n"
             "import srsran_project_23_5_tpu_torch as pkg\n"
             "mods = [m.name for m in pkgutil.walk_packages(\n"
@@ -217,7 +218,12 @@ def test_port_imports_no_jax():
             "for m in mods:\n"
             "    importlib.import_module(m)\n"
             "assert {'srsran_project_23_5_tpu_torch.apps.gnb',\n"
-            "        'srsran_project_23_5_tpu_torch.apps.phy_loop'} <= set(mods)\n"
+            "        'srsran_project_23_5_tpu_torch.apps.phy_loop',\n"
+            "        'srsran_project_23_5_tpu_torch.examples.phy_loopback',\n"
+            "        'srsran_project_23_5_tpu_torch.examples.mixed_slot_demo',\n"
+            "        'srsran_project_23_5_tpu_torch.examples.radio_ssb',\n"
+            "        'srsran_project_23_5_tpu_torch.examples.rrc_attach_demo',\n"
+            "        } <= set(mods)\n"
             "import chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m == 'jax'\n"
             "             or m.startswith(('jax.', 'jaxlib'))\n"
