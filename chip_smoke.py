@@ -611,12 +611,22 @@ def phase_slice(dev, card: str) -> dict:
     return {"launches": launches, "times": times, "pipe": pipe, "tb": tb}
 
 
+def _device_entries(prof) -> list:
+    """The profiler's device-side entries that are device work: a CPU op's
+    self device time repeats its kernels, and a ``record_function`` range
+    (the program's spans while the profiler records) shows on the device
+    as an annotation as long as the range, over the kernels inside it."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def _profiled(run, reps: int, unit: str, after=None) -> str:
     """torch.profiler over ``reps`` calls of ``run`` (then ``after()``):
     device busy share, the kernels that take the device time, and each LDPC
     kernel's device time per launch.  The profiler's own host cost
     lengthens the window, so the busy share is a lower bound."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -628,9 +638,7 @@ def _profiled(run, reps: int, unit: str, after=None) -> str:
             after()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    # device-side entries only: a CPU op's self device time repeats its kernels
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    kern = _device_entries(prof)
     busy_us = sum(e.self_device_time_total for e in kern)
     _check(busy_us > 0, "profiler recorded no device time")
     launches = sum(e.count for e in kern)
@@ -813,7 +821,6 @@ def phase_mixed_cpu(dev, card: str) -> None:
 def phase_dci_profile(card: str, cfg, pipe, payloads) -> None:
     """The once-per-batch DCI re-check (SSC polar decode, unrolled on the
     host into many small ops): its device ops and times, profiled alone."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     front = gnb_mixed._mixed_front(
         payloads, *gnb_mixed.draw_noise(cfg, SLICE_BATCH, pipe.generator), cfg)
@@ -827,8 +834,7 @@ def phase_dci_profile(card: str, cfg, pipe, payloads) -> None:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     _check(bool(ok), "DCI re-check failed under the profiler")
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    kern = _device_entries(prof)
     print(f"[mixed-profile] DCI re-check once per batch (SSC polar decode "
           f"K=64 N=512): {sum(e.count for e in kern)} device ops, "
           f"{sum(e.self_device_time_total for e in kern):.0f} us device, "
@@ -1577,7 +1583,6 @@ def _replay_busy(pipe, batch, seed: int) -> tuple[str, float]:
     the launches the capture counted) and the device span of the dispatch
     (CUDA events; the profiler lengthens it).  Returns (text, kernel time
     per slot in µs)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -1591,8 +1596,7 @@ def _replay_busy(pipe, batch, seed: int) -> tuple[str, float]:
         ok, _, n = pipe.fetch_accumulated()
         wall_us = (time.perf_counter() - t0) * 1e6
     _check(ok, "a slot failed in the profiled dispatch")
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    kern = _device_entries(prof)
     busy_us = sum(e.self_device_time_total for e in kern)
     ran = {kind: sum(e.count for e in kern if tag in e.key)
            for kind, tag in (("encoder", "ldpc_encode_kernel"),
@@ -2345,11 +2349,12 @@ def _fronthaul_times(dev, card: str, car, grid: torch.Tensor,
     m_ul4 = bench.run("UL 4 eAxCs reassemble + decompress", ul4_slot,
                       reps=FRONTHAUL_REPS)
     tracing.tracer.enabled = False
+    # read before the profiled slots, whose spans the tracer keeps too
+    spans = {}
+    for r in tracing.tracer.records():
+        spans.setdefault(r.name, []).append((r.end_ns - r.start_ns) / 1e3)
     prof_dl = _profiled(dl_slot, 5, "slot")
     prof_ul = _profiled(ul_slot, 5, "slot")
-    spans = {}
-    for e in tracing.tracer._events:
-        spans.setdefault(e["name"], []).append(e["dur"])
     tracing.tracer.clear()
     span_s = "; ".join(f"{k} {np.median(v[-FRONTHAUL_REPS:]):.1f} us "
                        f"(median tracer span of the {FRONTHAUL_REPS} timed "

@@ -22,6 +22,12 @@ accumulate mode and the scan mode (only the AOT program store,
   runs eagerly.  A dispatch's noise is drawn from a generator reseeded
   from its seed, outside the graph, so the result depends only on
   (payloads, seed) and a replay sees the draws of the eager loop.
+
+A scan dispatch is the span ``pipeline.dispatch`` of ``utils/tracing``
+(its request id the seed) over ``pipeline.payloads``, ``pipeline.noise``,
+``pipeline.launch`` (the replay; the eager loop on the CPU) and
+``pipeline.fold``; the capture is ``graphs.capture``, the one host read
+``pipeline.fetch``.
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ import torch
 from ..models import gnb_flagship
 from ..ops.ldpc import decoder_cuda, encoder_cuda
 from ..utils.device import resolve as resolve_device
+from ..utils.tracing import tracer
 
 # the kernel wrappers whose ``launches`` count a replay adds to
 _KERNELS = (encoder_cuda.encode, decoder_cuda.decode)
@@ -231,7 +238,8 @@ class SlotPipeline:
         last fetch; resets the accumulator."""
         if self._acc is None:
             return True, 0.0, 0
-        ok, ssum = bool(self._acc[0]), float(self._acc[1])
+        with tracer.span("pipeline.fetch", "pipeline"):
+            ok, ssum = bool(self._acc[0]), float(self._acc[1])
         n = self._acc_slots
         self._acc, self._acc_slots = None, 0
         return ok, ssum / n, n
@@ -301,11 +309,14 @@ class SlotPipeline:
                                                    torch.Tensor]:
         """One K·B-slot dispatch on the static buffers: the graph on CUDA,
         the loop on the CPU."""
-        self._set_payloads(batch)
-        noise = self.scan_noise(seed)
-        if self.device.type == "cuda":
-            return self.replay_scan()
-        return self.scan_step(self._static_payloads, noise)
+        with tracer.span("pipeline.payloads", "pipeline"):
+            self._set_payloads(batch)
+        with tracer.span("pipeline.noise", "pipeline"):
+            noise = self.scan_noise(seed)
+        with tracer.span("pipeline.launch", "pipeline"):
+            if self.device.type == "cuda":
+                return self.replay_scan()
+            return self.scan_step(self._static_payloads, noise)
 
     def _capture(self) -> None:
         """Eager passes on a side stream (kernel builds, cached device
@@ -340,7 +351,8 @@ class SlotPipeline:
         if self.device.type == "cuda":
             self._set_payloads(batch)
             self.scan_noise(0)
-            self._capture()
+            with tracer.span("graphs.capture", "graphs"):
+                self._capture()
         ok, ssum = self._dispatch(batch, 0)
         ok, ssum = bool(ok), float(ssum)
         return time.perf_counter() - t0, ok, ssum / self.slots_per_dispatch
@@ -348,7 +360,10 @@ class SlotPipeline:
     def submit_scan(self, batch, seed: int) -> None:
         """One K·B-slot dispatch folded into the on-device accumulator;
         nothing is read back to the host."""
-        self._fold(*self._dispatch(batch, seed), self.slots_per_dispatch)
+        with tracer.span("pipeline.dispatch", "pipeline", req=seed):
+            out = self._dispatch(batch, seed)
+            with tracer.span("pipeline.fold", "pipeline"):
+                self._fold(*out, self.slots_per_dispatch)
 
     def dispatch_latency(self, batch, seed: int) -> float:
         """Submission→result latency of one dispatch (seconds) on an idle

@@ -153,14 +153,15 @@ class SlotProgram:
     """One signature's program.  It takes the slot's sequences as c_init
     values, as the JAX program does, turns them into pilot tensors on the
     host side (cached per value on the device) and runs ``program``, the
-    captured body, on the slot's tensors and those pilots."""
+    captured body, on the slot's tensors and those pilots (``pilots_of``
+    alone gives the program's inputs)."""
 
     def __init__(self, program: graphs.Program, pilots_of) -> None:
         self.program = program
-        self._pilots_of = pilots_of
+        self.pilots_of = pilots_of
 
     def __call__(self, *args):
-        return self.program(*self._pilots_of(*args))
+        return self.program(*self.pilots_of(*args))
 
 
 def decode_groups(cfgs) -> dict:

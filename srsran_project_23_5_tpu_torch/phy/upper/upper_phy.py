@@ -9,6 +9,13 @@ default (bucketed) path runs one cached program per slot signature
 the same body eagerly on the CPU; ``bucketed=False`` keeps the eager per-PDU
 path for A/B comparison.  The modules below take a leading slot batch; the upper PHY
 calls them with B = 1.
+
+On the bucketed path a slot is a span of ``utils/tracing``,
+``upper_phy.ul_slot`` or ``upper_phy.dl_slot`` (its request id the slot's
+``(sfn, slot)``), over the preparation of the program's inputs, the
+program's ``graphs.*`` spans, and on the UL the softbuffer store, the one
+device-to-host ``fetch`` and the indications (on the DL the grid's clone);
+the count ``h2d`` adds each host array made into a device tensor.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ from . import pucch as pucch_proc
 from . import sch, slot_programs, ssb as ssb_proc
 from ...utils import graphs
 from ...utils.device import resolve as resolve_device
+from ...utils.tracing import tracer
 from .harq import SoftbufferPool
 
 
@@ -51,6 +59,7 @@ class UpperPhyConfig:
 
 
 def _bits(x, device: torch.device) -> torch.Tensor:
+    tracer.add("h2d")
     return torch.as_tensor(np.asarray(x, np.int8), device=device)
 
 
@@ -87,18 +96,28 @@ class UpperPhy:
         dev = self.device
         tbs = data.transport_blocks if data else []
         if self.config.bucketed:
-            if len(tbs) < len(req.pdsch_pdus):
-                # PDSCH PDUs without TX_Data are skipped, as on the per-PDU
-                # path
-                req = dataclasses.replace(
-                    req, pdsch_pdus=req.pdsch_pdus[:len(tbs)])
-            prog = self.dl_programs.get(slot_programs.dl_signature(req))
-            return prog(
-                tuple(_bits(p.payload_bits, dev) for p in req.ssb_pdus),
-                tuple(_bits(p.payload_bits, dev) for p in req.pdcch_pdus),
-                tuple(_bits(tb, dev) for tb in tbs[:len(req.pdsch_pdus)]),
-                tuple(slot_programs.pusch_cinits(p.config)
-                      for p in req.pdsch_pdus)).clone()
+            with tracer.span("upper_phy.dl_slot", "upper_phy",
+                             req=(req.sfn, req.slot)):
+                with tracer.span("upper_phy.dl_prep", "upper_phy"):
+                    if len(tbs) < len(req.pdsch_pdus):
+                        # PDSCH PDUs without TX_Data are skipped, as on the
+                        # per-PDU path
+                        req = dataclasses.replace(
+                            req, pdsch_pdus=req.pdsch_pdus[:len(tbs)])
+                    prog = self.dl_programs.get(
+                        slot_programs.dl_signature(req))
+                    inputs = prog.pilots_of(
+                        tuple(_bits(p.payload_bits, dev)
+                              for p in req.ssb_pdus),
+                        tuple(_bits(p.payload_bits, dev)
+                              for p in req.pdcch_pdus),
+                        tuple(_bits(tb, dev)
+                              for tb in tbs[:len(req.pdsch_pdus)]),
+                        tuple(slot_programs.pusch_cinits(p.config)
+                              for p in req.pdsch_pdus))
+                grid = prog.program(*inputs)
+                with tracer.span("upper_phy.dl_out", "upper_phy"):
+                    return grid.clone()
         grid = torch.zeros((1, 14, self.config.nsc), dtype=torch.complex64,
                            device=dev)
         for pdu in req.ssb_pdus:
@@ -208,6 +227,32 @@ class UpperPhy:
                                req: fapi.UlTtiRequest, slot_count: int,
                                prach_rx: torch.Tensor | None
                                ) -> list[object]:
+        with tracer.span("upper_phy.ul_slot", "upper_phy",
+                         req=(req.sfn, req.slot)):
+            with tracer.span("upper_phy.ul_prep", "upper_phy"):
+                req, prog, inputs = self._ul_inputs(rx_grid, req, prach_rx)
+            out = prog.program(*inputs)
+            # combined LLRs stay on the device (the pool keeps a copy: the
+            # next replay overwrites the program's outputs); everything else
+            # comes to the host in one transfer
+            with tracer.span("upper_phy.softbuffer_put", "upper_phy"):
+                for pdu, o in zip(req.pusch_pdus, out["pusch"]):
+                    self.softbuffers.put(pdu.config.rnti, pdu.harq_process,
+                                         o["combined_llr"], slot_count)
+            # (the outputs are the graph's own: read, never changed)
+            with tracer.span("upper_phy.fetch", "upper_phy"):
+                host = slot_programs.fetch({**out, "pusch": [
+                    {k: v for k, v in o.items() if k != "combined_llr"}
+                    for o in out["pusch"]]})
+            self.last_ul_slot = host
+            with tracer.span("upper_phy.indications", "upper_phy"):
+                return self._ul_indications(req, host, slot_count)
+
+    def _ul_inputs(self, rx_grid: torch.Tensor, req: fapi.UlTtiRequest,
+                   prach_rx: torch.Tensor | None) -> tuple:
+        """(the request as run, its program, the program's inputs): the
+        signature, HARQ priors, new-data flags, c_init values, PUCCH
+        sequences and pilots of a fused UL slot."""
         dev = rx_grid.device
         if prach_rx is None and req.prach_pdus:
             # no PRACH window captured this slot: the occasion's PDUs are
@@ -224,6 +269,7 @@ class UpperPhy:
             fresh = pdu.new_data or st is None or tuple(st.shape) != shape
             priors.append(torch.zeros(shape, dtype=torch.float32, device=dev)
                           if fresh else st)
+            tracer.add("h2d")
             new_data.append(torch.tensor(fresh, device=dev))
         if prach_rx is None:
             prach_rx = torch.zeros((1, 139), dtype=torch.complex64,
@@ -232,21 +278,14 @@ class UpperPhy:
                        for pdu in req.pusch_pdus)
         pucch_data = tuple(slot_programs.pucch_slot_data(pdu, dev)
                            for pdu in req.pucch_pdus)
+        return req, prog, prog.pilots_of(rx_grid, tuple(priors),
+                                          tuple(new_data), prach_rx, cinits,
+                                          pucch_data)
 
-        out = prog(rx_grid, tuple(priors), tuple(new_data), prach_rx, cinits,
-                   pucch_data)
-        # combined LLRs stay on the device (the pool keeps a copy: the next
-        # replay overwrites the program's outputs); everything else comes
-        # to the host in one transfer
-        for pdu, o in zip(req.pusch_pdus, out["pusch"]):
-            self.softbuffers.put(pdu.config.rnti, pdu.harq_process,
-                                 o["combined_llr"], slot_count)
-        # (the outputs are the graph's own: read, never changed)
-        host = slot_programs.fetch({**out, "pusch": [
-            {k: v for k, v in o.items() if k != "combined_llr"}
-            for o in out["pusch"]]})
-        self.last_ul_slot = host
-
+    def _ul_indications(self, req: fapi.UlTtiRequest, host: dict,
+                        slot_count: int) -> list[object]:
+        """The FAPI indications of a fused UL slot from its host outputs;
+        closes the slot in the softbuffer pool."""
         inds: list[object] = []
         for pdu, o in zip(req.pusch_pdus, host["pusch"]):
             cfg = pdu.config

@@ -15,6 +15,10 @@ tensor changed in place is seen) and then:
 Everything the function reads that changes from call to call must be one
 of its input tensors: a Python value it reads is fixed at capture.
 
+A call is two spans of ``utils/tracing``: ``graphs.copy_in``, then
+``graphs.replay``, or ``graphs.capture`` for the call that captures (on the
+CPU, the first call).
+
 All programs of one owner share one ``GraphPool``: one memory pool
 (``torch.cuda.graph_pool_handle()``), so memory does not grow with the
 number of programs, and the counters.  Programs replay in any order, so
@@ -37,6 +41,7 @@ import torch
 
 from ..ops.ldpc import decoder_cuda, encoder_cuda
 from .device import resolve as resolve_device
+from .tracing import tracer
 
 # the kernel wrappers whose ``launches`` count a replay adds to
 _KERNELS = (encoder_cuda.encode, decoder_cuda.decode)
@@ -121,6 +126,25 @@ class Program:
         return _rebuild(self._shape, self._leaves)
 
     def __call__(self, *inputs):
+        first = self._shape is None
+        with tracer.span("graphs.copy_in", "graphs"):
+            self._copy_in(inputs)
+        cuda = self.pool.device.type == "cuda"
+        # on the CPU the eager run on the static buffers stands for the
+        # replay, and the first one, which fills the per-config caches, for
+        # the capture
+        capture = self.graph is None if cuda else first
+        with tracer.span("graphs.capture" if capture else "graphs.replay",
+                         "graphs"):
+            if not cuda:
+                return self.fn(*self.inputs)
+            if capture:
+                self._capture()
+            return self._replay()
+
+    def _copy_in(self, inputs: tuple) -> None:
+        """The inputs into the static buffers (made from the first call's
+        inputs)."""
         leaves: list[torch.Tensor] = []
         shape = _flatten(inputs, leaves)
         if self._shape is None:
@@ -137,11 +161,6 @@ class Program:
         else:
             for dst, src in zip(self._leaves, leaves):
                 dst.copy_(src)
-        if self.pool.device.type != "cuda":
-            return self.fn(*self.inputs)
-        if self.graph is None:
-            self._capture()
-        return self._replay()
 
     def eager(self, *inputs):
         """``fn`` run eagerly on ``inputs`` themselves (no static buffer, no

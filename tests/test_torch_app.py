@@ -114,7 +114,10 @@ COPIES = [
     "ran/sliv.py", "ran/band_helper.py", "ran/ssb_patterns.py",
     "fapi/scf.py", "fapi/builders.py",
     "ofh/ecpri.py", "ofh/ethernet.py", "ofh/serdes.py",
-    "radio/trx.py", "utils/tracing.py", "utils/benchmark.py",
+    "radio/trx.py", "utils/benchmark.py",
+    # utils/tracing.py is no copy: the port's tracer keeps parents, request
+    # ids and counts on the clock of torch.profiler's trace, and its spans
+    # are record_function ranges while the profiler records
 ]
 
 _NATIVE_BUILD_WHY = (

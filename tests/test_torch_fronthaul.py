@@ -757,21 +757,24 @@ def test_ssb_patterns(case, lmax):
 # ---------------------------------------------------- tracing and benchmark
 def test_event_tracer(tmp_path):
     tr = ttracing.EventTracer()
-    with tr.span("off"):
-        pass
-    tr.instant("off")
-    assert tr._events == []
+    with tr.span("off", "ofh"):
+        tr.add("n")
+    assert tr.records() == []
     tr.enabled = True
-    with tr.span("dl", "ofh"):
-        pass
-    tr.instant("mark")
+    with tr.span("dl", "ofh", req=(1, 2)):
+        tr.add("n", 3)
     path = tmp_path / "trace.json"
     tr.write(str(path))
-    ev = json.loads(path.read_text())["traceEvents"]
-    assert [(e["name"], e["ph"]) for e in ev] == [("dl", "X"), ("mark", "i")]
-    assert ev[0]["cat"] == "ofh" and ev[0]["dur"] >= 0
+    got = json.loads(path.read_text())
+    ev = got["traceEvents"]
+    assert [(e["name"], e["ph"]) for e in ev] == [("dl", "X")]
+    assert ev[0]["cat"] == "ofh" and ev[0]["dur"] >= 0 and ev[0]["ts"] == 0
+    assert ev[0]["args"]["req"] == [1, 2]
+    assert ev[0]["args"]["counts"] == {"n": 3}
+    assert got["baseTimeNanoseconds"] == tr.records()[0].start_ns
+    assert not hasattr(tr, "instant")
     tr.clear()
-    assert tr._events == []
+    assert tr.records() == []
     assert isinstance(ttracing.tracer, ttracing.EventTracer)
     assert not ttracing.tracer.enabled
 
