@@ -6,7 +6,7 @@ Phases, one line each:
 
 1. device  — refuses to run without CUDA; prints the card's name and power
    limit as nvidia-smi gives them;
-2. build   — builds both LDPC kernels from ``csrc/`` (nvcc, sm_90a);
+2. build   — builds the kernel library from ``csrc/`` (nvcc, sm_90a);
 3. encoder — kernel vs ``encode_plain`` on the card, bit for bit, at the
    flagship shape (BG2 Z=384, 88 codeblocks), at the mixed slot's four
    shapes (BG1 Z=384 x128, x56, x136; BG1 Z=352 x64), at lifting sizes
@@ -20,22 +20,26 @@ Phases, one line each:
    each main-path shape, and the phase split of one CTA (LLR load + c2v
    clear, sweeps, syndrome, bit write) from the kernel's diagnostic
    instance at x136 n_used 35 and on the full graph at Z=384 x8;
+4b. pusch-llr — the PUSCH LLR kernel vs ``pusch_llr_plain`` on the card,
+   bit for bit, at the four PUSCH shapes of the benchmark cells (the mixed
+   slot's two at B=64, the FAPI carrier's A and B at B=1) with their own
+   scrambling signs, each timed beside its bytes bound and the plain chain;
 5. slice   — ``SlotPipeline`` on the 273-PRB flagship carrier, 8 slots per
    batch, depth 2, 20 dB: warmup + submits + drain; every TB CRC ok, mean
-   SINR within 1.5 dB of 20, both kernels launched in that run; decoded bits
-   equal the sent bits; a small slot on the card agrees with the same slot
-   through the plain versions on the CPU; kernel and plain times at the
-   flagship shapes;
+   SINR within 1.5 dB of 20, every counted kernel launched in that run;
+   decoded bits equal the sent bits; a small slot on the card agrees with
+   the same slot through the plain versions on the CPU; kernel and plain
+   times at the flagship shapes;
 6. profile — torch.profiler over two flagship batches: device busy share,
    the top kernels, each LDPC kernel's device time per launch;
 7. mixed   — the 273-PRB mixed slot (2×PDSCH with 2-layer MIMO, PDCCH, SSB,
    CSI-RS, 2×PUSCH, PUCCH F1, PRACH) through ``SlotPipeline`` with
    ``gnb_mixed.batch_fn_for_pipeline``, 8 slots per batch, depth 2, 20 dB:
    warmup + submits + drain; every slot ok, mean UL SINR within 1.0 dB of
-   20, 4 encoder and 2 decoder launches per batch; how many slots passed
-   each check; the wall time of each stage of a batch; kernel and plain
-   times at the mixed shapes, and the decoder's phase split on the mixed
-   slot's own LLRs;
+   20, 4 encoder, 2 decoder and 2 pusch_llr launches per batch; how many
+   slots passed each check; the wall time of each stage of a batch; kernel
+   and plain times at the mixed shapes, and the decoder's phase split on
+   the mixed slot's own LLRs;
 8. mixed-cpu — a ``tiny_mixed`` batch of 2 on the card against the same
    payloads and noise through the plain versions on the CPU: every verdict
    and the decoded bits equal, SINRs within 0.1 dB;
@@ -71,15 +75,16 @@ Phases, one line each:
 12. mixed-variants — the 273-PRB mixed slot's options through
    ``SlotPipeline``, 8 slots per batch: the TDL channel (``tdl_channel``
    at 30 dB; its verdicts at 20 dB are printed, not gated),
-   the UE-side PDSCH decode (``ue_decode_dl``: 4 decoder launches per
-   batch; its two PDSCH decode shapes, BG1 Z=384 x128 and x56 n_used 34,
-   held bit-exact against ``decode_plain`` first and timed) and the grid
-   PRACH; every slot ok under the JAX slot's gates, µs/slot each;
+   the UE-side PDSCH decode (``ue_decode_dl``: 4 decoder and 4 pusch_llr
+   launches per batch; its two PDSCH decode shapes, BG1 Z=384 x128 and
+   x56 n_used 34, held bit-exact against ``decode_plain`` first and
+   timed) and the grid PRACH; every slot ok under the JAX slot's gates,
+   µs/slot each;
 13. harq — ``harq_retx_batch`` at 273 PRB, 8 slots: a sweep of snr1 over
    11-14 dB, the first point where every first and retx verdict fails and
    every combination passes for both UEs, driven once with the counts
-   reset (8 encoder and 6 decoder launches); the full-graph decodes of the
-   combined LLRs (BG1 Z=384 x136, Z=352 x64) bit-exact against
+   reset (8 encoder, 6 decoder and 4 pusch_llr launches); the full-graph
+   decodes of the combined LLRs (BG1 Z=384 x136, Z=352 x64) bit-exact against
    ``decode_plain``, timed, with CTAs per SM, waves and the phase split;
 14. receivers — on the flat mixed slot's UE grid (port 0):
    ``pdcch_blind_receive`` for each RNTI over CCEs {0, 4, 8, 12} at AL4
@@ -107,12 +112,12 @@ Phases, one line each:
    (all_ok equal, sinr_sum within 1e-6 relative, bit-equality reported); a
    replay with the static noise ×100 must fail; µs/slot over a window of
    several dispatches and one ``fetch_accumulated``, every slot ok, the
-   launches per replay (4K encoder, 2K decoder, counted by the capture
-   and checked against the LDPC kernels the profiler sees the device run
+   launches per replay (4K encoder, 2K decoder, 2K pusch_llr, counted by the
+   capture and checked against the kernels the profiler sees the device run
    in one replay); ``dispatch_latency``; one dispatch under torch.profiler
    (busy share, device span);
 17. flagship-scan — the same for the flagship loopback at B = 8, K = 8
-   (K encoder and K decoder launches per replay), untimed;
+   (K encoder, K decoder and K pusch_llr launches per replay), untimed;
 18. accumulate — ``submit_accumulated`` over 3 eager mixed batches against
    the reduction of ``drain()`` of a pipeline with the same seed;
 19. ops — the ops the port gained with the scan mode (bit packing, host
@@ -128,10 +133,11 @@ Phases, one line each:
    DU-high, MAC and scheduler, FAPI, ``UpperPhy``, OFDM, AWGN and the UE.
    The UE must reach RRC ACTIVE with every packet delivered both ways,
    one RAR, at least 3 DL decodes, PRACH, PUCCH ACK and F2 CSI sent, a
-   CQI > 0 at the scheduler, and both kernels launched.  Every launch the
-   run made (gNB PDSCH encode and PUSCH decode, UE PUSCH encode and PDSCH
-   decode; tapped in ``sch`` and ``slot_programs``) is bit-exact against
-   its plain version, and each distinct shape is timed with its bound.
+   CQI > 0 at the scheduler, and every counted kernel launched.  Every
+   LDPC launch the run made (gNB PDSCH encode and PUSCH decode, UE PUSCH
+   encode and PDSCH decode; tapped in ``sch`` and ``slot_programs``) is
+   bit-exact against its plain version, and each distinct shape is timed
+   with its bound.
    Printed: ms per slot (median and p90 after attach, over all slots and
    over the slots with PHY work), slots/s, the split of a slot over the
    host stack, the gNB DL and UL PHY, OFDM + AWGN, the UE's DL side and
@@ -202,10 +208,11 @@ Phases, one line each:
    seconds and peak reserved MiB per rank;
 25. examples — the four examples through their ``main`` with no
    ``--device`` (the card is their default): ``mixed_slot_demo --prb
-   273`` (every channel ok; 4 encoder, 2 decoder launches; a warm second
-   run, checked alike), ``phy_loopback`` at its defaults (52 PRB, 16QAM, R=0.5, 15 dB)
-   and at ``--prb 273 --qm 6 --rate 0.65 --snr-db 20`` (8 slots each,
-   every CRC ok, mean SINR within 1.5 dB, 8 + 8 launches), ``radio_ssb``
+   273`` (every channel ok; 4 encoder, 2 decoder, 2 pusch_llr launches; a
+   warm second run, checked alike), ``phy_loopback`` at its defaults (52
+   PRB, 16QAM, R=0.5, 15 dB) and at ``--prb 273 --qm 6 --rate 0.65
+   --snr-db 20`` (8 slots each, every CRC ok, mean SINR within 1.5 dB,
+   8 + 8 + 8 launches), ``radio_ssb``
    (SSBs at slots 0 and 20 detected, PBCH ok) and ``rrc_attach_demo``
    (ACTIVE, 8 messages); every LDPC launch bit-exact against its plain
    version and each shape timed with its bound.
@@ -244,6 +251,7 @@ from srsran_project_23_5_tpu_torch.fapi import scf, validators
 from srsran_project_23_5_tpu_torch.models import (fapi_carrier, gnb_flagship,
                                                   gnb_mixed)
 from srsran_project_23_5_tpu_torch.ofh import compression as bfp
+from srsran_project_23_5_tpu_torch.ops import modulation
 from srsran_project_23_5_tpu_torch.ops import prach as prach_ops
 from srsran_project_23_5_tpu_torch.ops.ldpc import (decoder_cuda,
                                                     encoder_cuda, graphs,
@@ -388,12 +396,14 @@ def phase_build(card: str) -> dict:
     t0 = time.perf_counter()
     lib = kernels.library()
     wall = time.perf_counter() - t0
-    # ptxas -v: registers of each kernel (decoder instances by row degree)
+    # ptxas -v: registers of each kernel (decoder instances by row degree,
+    # pusch_llr's by bits per symbol)
     regs = []
     for name, n in re.findall(r"Compiling entry function '(\w+)'.*?Used "
                               r"(\d+) registers", lib.build_log, flags=re.S):
         degree = re.search(r"ILi(\d+)E", name)
-        label = "encoder" if "encode" in name else "decoder"
+        label = ("pusch_llr" if "pusch_llr" in name else
+                 "encoder" if "encode" in name else "decoder")
         regs.append(f"{label}{'<%s>' % degree.group(1) if degree else ''} "
                     f"{n} regs")
     summary = ", ".join(regs)
@@ -494,6 +504,53 @@ def phase_decoder(dev, card: str) -> float:
     return float(max_err)
 
 
+def pusch_llr_bound(batch: int, n_re: int, qm: int) -> tuple[float, str]:
+    """Symbols (8 B) and noise variance (4 B) of every RE in, the sign
+    (4·qm B per RE of one row, the same for every row) in once, 4·qm B of
+    LLR per RE out; the arithmetic is far below the float32 rate."""
+    return _bound(batch * n_re * (12 + 4 * qm) + n_re * 4 * qm, 0.0)
+
+
+def phase_pusch_llr(dev, card: str) -> dict:
+    """The PUSCH LLR kernel against the plain chain at the shapes the
+    benchmark cells run (the mixed slot's two PUSCH at B=64, the FAPI
+    carrier's PUSCH A and B at B=1) on symbols around the constellation,
+    with the configs' own scrambling signs: bit-identical, then timed beside
+    its bytes bound and the plain chain."""
+    mixed, car = gnb_mixed.default_mixed(), fapi_carrier.default_carrier()
+    shapes = [("mixed pusch0", mixed.pusch0, 64),
+              ("mixed pusch1", mixed.pusch1, 64),
+              ("fapi pusch A", car.pusch_a, 1),
+              ("fapi pusch B", car.pusch_b, 1)]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    times, max_err = [], 0.0
+    for label, cfg, batch in shapes:
+        qm, layers = cfg.qm, cfg.nof_layers
+        n_re = cfg.nof_bits // qm
+        shape = (batch, n_re) if layers == 1 else (batch, layers,
+                                                   n_re // layers)
+        x = torch.complex(
+            torch.randn(shape, generator=gen, device=dev),
+            torch.randn(shape, generator=gen, device=dev)) * 0.8
+        nv = 10 ** (torch.rand(shape, generator=gen, device=dev) * 3 - 2.5)
+        _, sign = sch._scramble_seq(cfg.scrambling_cinit, cfg.nof_bits, dev)
+        got = modulation.pusch_llr(x, nv, sign, qm)
+        want = modulation.pusch_llr_plain(x, nv, sign, qm)
+        torch.cuda.synchronize()
+        _check(torch.equal(got, want), f"pusch_llr kernel != plain at "
+               f"{label} x{batch}")
+        max_err = max(max_err, float((got - want).abs().max()))
+        times.append(_timed(
+            "pusch_llr", f"{label} {qm}-bit L={layers} S={n_re // layers} "
+            f"x{batch}", lambda: modulation.pusch_llr(x, nv, sign, qm),
+            lambda: modulation.pusch_llr_plain(x, nv, sign, qm), 50, 5,
+            pusch_llr_bound(batch, n_re, qm)))
+    print(f"[pusch_llr] bit-identical to pusch_llr_plain at "
+          f"{', '.join(f'{l} x{b}' for l, _, b in shapes)}; "
+          + "; ".join(_fmt(r) for r in times) + f" on {card}")
+    return {"times": times, "max_err": max_err}
+
+
 def _phase_split(label: str, llr: torch.Tensor, bg: int, zc: int,
                  n_used) -> str:
     """The decoder's per-CTA phase split from its diagnostic instance
@@ -530,8 +587,7 @@ def phase_slice(dev, card: str) -> dict:
     tb = torch.randint(0, 2, (SLICE_BATCH, sh.tbs), generator=gen,
                        device=dev, dtype=torch.int8)
 
-    encoder_cuda.encode.launches = 0
-    decoder_cuda.decode.launches = 0
+    kernel_taps.reset_launch_counts()
     warm_s, ok0, sinr0 = pipe.warmup(tb)
     t0 = time.perf_counter()
     for _ in range(SLICE_SUBMITS):
@@ -539,8 +595,7 @@ def phase_slice(dev, card: str) -> dict:
     results = pipe.drain()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"encoder": encoder_cuda.encode.launches,
-                "decoder": decoder_cuda.decode.launches}
+    launches = kernel_taps.launch_counts()
 
     oks = np.concatenate([ok0] + [ok for ok, _ in results])
     sinrs = np.concatenate([sinr0] + [s for _, s in results])
@@ -549,8 +604,8 @@ def phase_slice(dev, card: str) -> dict:
     _check(bool(np.isfinite(sinrs).all())
            and abs(float(sinrs.mean()) - 20.0) < 1.5,
            f"mean SINR {float(sinrs.mean())} dB not within 1.5 dB of 20")
-    _check(launches["encoder"] > 0 and launches["decoder"] > 0,
-           f"main path did not launch both kernels: {launches}")
+    _check(all(launches.values()),
+           f"main path did not launch every kernel: {launches}")
     us_per_slot = wall / (SLICE_SUBMITS * SLICE_BATCH) * 1e6
 
     # decoded bits equal the sent bits (direct call of the batched step)
@@ -680,8 +735,7 @@ def phase_mixed(dev, card: str) -> dict:
     payloads = gnb_mixed.make_payloads(cfg, np.random.default_rng(6),
                                        SLICE_BATCH, dev)
 
-    encoder_cuda.encode.launches = 0
-    decoder_cuda.decode.launches = 0
+    kernel_taps.reset_launch_counts()
     warm_s, ok0, sinr0 = pipe.warmup(payloads)
     t0 = time.perf_counter()
     for _ in range(MIXED_SUBMITS):
@@ -689,8 +743,7 @@ def phase_mixed(dev, card: str) -> dict:
     results = pipe.drain()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"encoder": encoder_cuda.encode.launches,
-                "decoder": decoder_cuda.decode.launches}
+    launches = kernel_taps.launch_counts()
 
     batches = MIXED_SUBMITS + 1
     oks = np.concatenate([ok0] + [ok for ok, _ in results])
@@ -700,9 +753,10 @@ def phase_mixed(dev, card: str) -> dict:
     _check(bool(np.isfinite(sinrs).all())
            and abs(float(sinrs.mean()) - 20.0) < 1.0,
            f"mean UL SINR {float(sinrs.mean())} dB not within 1.0 dB of 20")
-    _check(launches == {"encoder": 4 * batches, "decoder": 2 * batches},
-           f"expected 4 encoder and 2 decoder launches per batch over "
-           f"{batches} batches, got {launches}")
+    _check(launches == {"encoder": 4 * batches, "decoder": 2 * batches,
+                        "pusch_llr": 2 * batches},
+           f"expected 4 encoder, 2 decoder and 2 pusch_llr launches per "
+           f"batch over {batches} batches, got {launches}")
     us_per_slot = wall / (MIXED_SUBMITS * SLICE_BATCH) * 1e6
 
     # how many slots pass each check (two more batches of the same function)
@@ -897,6 +951,11 @@ def _tree_diffs(got, want) -> list[str]:
     return bad
 
 
+def _no_launches() -> dict[str, int]:
+    """A launch count of 0 for every counted kernel."""
+    return dict.fromkeys(kernel_taps.launch_counts(), 0)
+
+
 @contextlib.contextmanager
 def _uncounted():
     """Kernel launches inside the block (comparisons, timings) leave the
@@ -905,8 +964,7 @@ def _uncounted():
     try:
         yield
     finally:
-        encoder_cuda.encode.launches = saved["encoder"]
-        decoder_cuda.decode.launches = saved["decoder"]
+        kernel_taps.reset_launch_counts(saved)
 
 
 def _replay_vs_eager(label: str, prog, got=None) -> None:
@@ -958,7 +1016,7 @@ def phase_upper_phy(dev, card: str) -> dict:
         replay, the warm-up's on a capture) and its replay vs eager."""
         groups = slot_programs.decode_groups(
             slot_programs.signature(req)[0])
-        d0, c0 = decoder_cuda.decode.launches, phy.graphs.captures
+        n0, c0 = kernel_taps.launch_counts(), phy.graphs.captures
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         inds = phy.process_ul_slot(rx, req, slot_count=slot_count,
@@ -969,18 +1027,19 @@ def phase_upper_phy(dev, card: str) -> dict:
         prog = phy.ul_programs.get(slot_programs.signature(
             req if prach_rx is not None else dataclasses.replace(
                 req, prach_pdus=[]))).program
-        _check(prog.captured_launches == (0, len(groups))
-               and decoder_cuda.decode.launches - d0
-               == len(groups) * (1 + new),
-               f"UL slot {slot_count}: {decoder_cuda.decode.launches - d0} "
-               f"decoder launches ({new} captures), {prog.captured_launches}"
-               f" per replay, for {len(groups)} decode groups")
+        per_replay = {"encoder": 0, "decoder": len(groups),
+                      "pusch_llr": len(req.pusch_pdus)}
+        ran = {k: n - n0[k] for k, n in kernel_taps.launch_counts().items()}
+        _check(prog.captured_launches == per_replay
+               and ran == {k: n * (1 + new) for k, n in per_replay.items()},
+               f"UL slot {slot_count}: launches {ran} ({new} captures), "
+               f"{prog.captured_launches} per replay, for {len(groups)} "
+               f"decode groups and {len(req.pusch_pdus)} PUSCH PDUs")
         _replay_vs_eager(f"UL slot {slot_count}", prog)
         ul_reqs.append(req)
         return inds
 
-    encoder_cuda.encode.launches = 0
-    decoder_cuda.decode.launches = 0
+    kernel_taps.reset_launch_counts()
     for slot in range(UPPER_SLOTS):
         # ---- downlink
         req, data = fapi_carrier.dl_request(car, slot, rng, vrb=slot == 5)
@@ -1044,10 +1103,9 @@ def phase_upper_phy(dev, card: str) -> dict:
                 _check(all(np.array_equal(a[f], b[f]) for f in a
                            if f.endswith(("_bits", "_valid"))),
                        "UL slot 0: card and CPU UCI differ")
-    launches = {"encoder": encoder_cuda.encode.launches,
-                "decoder": decoder_cuda.decode.launches}
-    _check(launches["encoder"] > 0 and launches["decoder"] > 0,
-           f"upper PHY run did not launch both kernels: {launches}")
+    launches = kernel_taps.launch_counts()
+    _check(all(launches.values()),
+           f"upper PHY run did not launch every kernel: {launches}")
 
     # ---- each decode group of the full-mix slot 0: kernel vs plain on the
     # LLRs the program handed it (PUSCH A x34 n_used 35, PUSCH B x8 n_used 33)
@@ -1073,8 +1131,7 @@ def phase_upper_phy(dev, card: str) -> dict:
                         lambda: encoder_cuda.encode(cbs, 1, 384),
                         lambda: encoder_cuda.encode_plain(cbs, 1, 384), 200,
                         3, encoder_bound(1, 384, 8)))
-    encoder_cuda.encode.launches = launches["encoder"]
-    decoder_cuda.decode.launches = launches["decoder"]
+    kernel_taps.reset_launch_counts(launches)
 
     # ---- two HARQ pairs: rv=0 fails, rv=2 combines on the full graph and
     # passes; the second pair replays the graphs the first one captured,
@@ -1152,8 +1209,7 @@ def phase_upper_phy(dev, card: str) -> dict:
                f"truncated-graph decoder (n_used {n_used}) != plain on the "
                f"combined buffer")
         trunc_ms = _time_ms(trunc, 50, queued=True)
-    launches = {"encoder": encoder_cuda.encode.launches,
-                "decoder": decoder_cuda.decode.launches}
+    launches = kernel_taps.launch_counts()
 
     # ---- the programs alone: replay vs eager body on their last inputs
     progs = {"DL": phy.dl_programs.get(slot_programs.dl_signature(
@@ -1183,7 +1239,7 @@ def phase_upper_phy(dev, card: str) -> dict:
           f"{phy.ul_programs.nof_compiled} UL signatures) in "
           f"{g.capture_seconds:.2f} s, {g.replays} replays, pool "
           f"{g.reserved_bytes() / 2**20:.1f} MiB reserved; launches per "
-          f"replay (encoder, decoder): "
+          f"replay: "
           + ", ".join(f"{k} {p.captured_launches}" for k, p in progs.items())
           + f"; ms per slot through UpperPhy (host clock after synchronize, "
           f"slots whose signature was captured before): DL "
@@ -1264,8 +1320,7 @@ def _pipeline_run(dev, cfg, seed: int, submits: int) -> dict:
         device=dev, seed=seed, batch_fn=gnb_mixed.batch_fn_for_pipeline(cfg))
     payloads = gnb_mixed.make_payloads(cfg, np.random.default_rng(seed),
                                        SLICE_BATCH, dev)
-    encoder_cuda.encode.launches = 0
-    decoder_cuda.decode.launches = 0
+    kernel_taps.reset_launch_counts()
     warm_s, ok0, sinr0 = pipe.warmup(payloads)
     t0 = time.perf_counter()
     for _ in range(submits):
@@ -1273,8 +1328,7 @@ def _pipeline_run(dev, cfg, seed: int, submits: int) -> dict:
     results = pipe.drain()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"encoder": encoder_cuda.encode.launches,
-                "decoder": decoder_cuda.decode.launches}
+    launches = kernel_taps.launch_counts()
     _check(len(results) == submits, "pipeline lost batches")
     return {"launches": launches, "pipe": pipe, "payloads": payloads,
             "warm_s": warm_s, "batches": submits + 1,
@@ -1313,7 +1367,7 @@ def phase_mixed_variants(dev, card: str) -> dict:
     _check([r["shape"].split(" (")[0] for r in times]
            == ["BG1 Z=384 x128 n_used 34", "BG1 Z=384 x56 n_used 34"],
            f"unexpected PDSCH decode shapes: {[r['shape'] for r in times]}")
-    launches = {"encoder": 0, "decoder": 0}
+    launches = _no_launches()
     notes = []
     for i, (name, cfg) in enumerate(variants.items()):
         r = _pipeline_run(dev, cfg, 21 + i, 2)
@@ -1325,9 +1379,11 @@ def phase_mixed_variants(dev, card: str) -> dict:
             _check(abs(float(sinrs.mean()) - cfg.snr_db) < 1.0,
                    f"{name}: mean UL SINR {float(sinrs.mean()):.2f} dB")
         _check(r["launches"] == {"encoder": 4 * r["batches"],
-                                 "decoder": n_dec * r["batches"]},
+                                 "decoder": n_dec * r["batches"],
+                                 "pusch_llr": n_dec * r["batches"]},
                f"{name}: launches {r['launches']} over {r['batches']} "
-               f"batches, expected 4 encoder and {n_dec} decoder per batch")
+               f"batches, expected 4 encoder, {n_dec} decoder and {n_dec} "
+               f"pusch_llr per batch")
         for k in launches:
             launches[k] += r["launches"][k]
         notes.append(f"{name} {r['us_per_slot']:.1f} us/slot (warmup "
@@ -1385,17 +1441,15 @@ def phase_harq(dev, card: str) -> dict:
     _check(chosen is not None, f"no snr1 where first and retx fail and the "
            f"combination passes: {sweep}")
     nz = noise(chosen)
-    encoder_cuda.encode.launches = 0
-    decoder_cuda.decode.launches = 0
+    kernel_taps.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = gnb_mixed.harq_retx_batch(pay, nz, cfg, chosen, device=dev)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    launches = {"encoder": encoder_cuda.encode.launches,
-                "decoder": decoder_cuda.decode.launches}
-    _check(launches == {"encoder": 8, "decoder": 6},
-           f"HARQ batch launches {launches}, expected 8 and 6")
+    launches = kernel_taps.launch_counts()
+    _check(launches == {"encoder": 8, "decoder": 6, "pusch_llr": 4},
+           f"HARQ batch launches {launches}, expected 8, 6 and 4")
     _check(all(not o["first_ok"].any() and not o["retx_ok"].any()
                and bool(o["combined_ok"].all()) for o in out.values()),
            f"HARQ verdicts at {chosen} dB: {out}")
@@ -1519,8 +1573,7 @@ def phase_lower(dev, card: str, u: dict) -> dict:
     gen = torch.Generator(device=dev).manual_seed(50)
     cfg = lower_phy.LowerPhyConfig(mu=1, nfft=car.nfft, nof_prb=car.nof_prb)
     nslots = 8
-    encoder_cuda.encode.launches = 0
-    decoder_cuda.decode.launches = 0
+    kernel_taps.reset_launch_counts()
     reqs = [fapi_carrier.dl_request(car, s, rng) for s in range(nslots)]
     c0 = phy.graphs.captures
     # eight grids kept at once: each is the slot's own, not the last replay's
@@ -1550,9 +1603,9 @@ def phase_lower(dev, card: str, u: dict) -> dict:
             res.tb_bits[0].cpu().numpy(), data.transport_blocks[0]),
             f"lower-PHY slot {s}: PDSCH A did not decode")
     torch.cuda.synchronize()
-    launches = {"encoder": encoder_cuda.encode.launches,
-                "decoder": decoder_cuda.decode.launches}
-    _check(launches == {"encoder": 2 * (nslots + warmups), "decoder": nslots},
+    launches = kernel_taps.launch_counts()
+    _check(launches == {"encoder": 2 * (nslots + warmups), "decoder": nslots,
+                        "pusch_llr": nslots},
            f"lower-PHY run launches {launches} ({warmups} captures)")
     st = eng.tx_stats
     stats = (f"mean {float(st.mean_power_dbfs):.2f} dBFS, peak "
@@ -1600,9 +1653,10 @@ def _replay_busy(pipe, batch, seed: int) -> tuple[str, float]:
     busy_us = sum(e.self_device_time_total for e in kern)
     ran = {kind: sum(e.count for e in kern if tag in e.key)
            for kind, tag in (("encoder", "ldpc_encode_kernel"),
-                             ("decoder", "ldpc_decode_kernel"))}
-    counted = dict(zip(("encoder", "decoder"), pipe.captured_launches))
-    _check(ran == counted, f"the profiler saw {ran} LDPC kernels in one "
+                             ("decoder", "ldpc_decode_kernel"),
+                             ("pusch_llr", "pusch_llr_kernel"))}
+    counted = pipe.captured_launches
+    _check(ran == counted, f"the profiler saw {ran} kernels in one "
            f"replay, the capture counted {counted}")
     span_us = start.elapsed_time(end) * 1e3
     top = sorted(kern, key=lambda e: e.self_device_time_total, reverse=True)
@@ -1613,7 +1667,7 @@ def _replay_busy(pipe, batch, seed: int) -> tuple[str, float]:
                         f"{100 * e.self_device_time_total / busy_us:.1f}%"
                         for e in top[:6])
             if busy_us else "the profiler saw no kernel of the graph")
-    return (f"{seen}; LDPC kernels the device ran in the replay {ran}; "
+    return (f"{seen}; counted kernels the device ran in the replay {ran}; "
             f"device span {span_us:.0f} us "
             f"({100 * span_us / wall_us:.1f}% of the wall, "
             f"{span_us / n:.1f} us per slot)", busy_us / n)
@@ -1644,7 +1698,7 @@ def _scan_kernels(card: str, label: str, pipe, batch,
         ok_e, sum_e = pipe.scan_step(batch, noise)
         torch.cuda.synchronize()
     graph, eager = sink.graph, sink.eager
-    n = sum(pipe.captured_launches)
+    n = kernel_taps.tapped_launches(pipe.captured_launches)
     _check(len(graph) == len(eager) == n, f"{label}: {len(graph)} kernel "
            f"calls captured, {len(eager)} eager, {n} launches counted")
     _check(bool(ok_r) and bool(ok_e) and torch.equal(sum_r, sum_e),
@@ -1691,7 +1745,7 @@ def _scan_kernels(card: str, label: str, pipe, batch,
     return times
 
 
-def _scan_run(dev, card: str, label: str, pipe, batch, per_batch: tuple,
+def _scan_run(dev, card: str, label: str, pipe, batch, per_batch: dict,
               dispatches: int, sinr_tol: float) -> dict:
     """The scan mode of one pipeline on the card: warmup_scan (eager
     warmup, capture), one replay against the eager K-batch loop on the
@@ -1710,8 +1764,8 @@ def _scan_run(dev, card: str, label: str, pipe, batch, per_batch: tuple,
     held_gib = (torch.cuda.memory_reserved() - base[1]) / 2 ** 30
     _check(ok0 and abs(mean0 - snr) < sinr_tol,
            f"{label}: scan warmup ok {ok0}, mean SINR {mean0:.2f} dB")
-    per_replay = dict(zip(("encoder", "decoder"), pipe.captured_launches))
-    want = {"encoder": per_batch[0] * k, "decoder": per_batch[1] * k}
+    per_replay = pipe.captured_launches
+    want = {kind: n * k for kind, n in per_batch.items()}
     _check(per_replay == want, f"{label}: the graph captured {per_replay} "
            f"launches, expected {want}")
     # one replay against the eager K-batch loop on the same noise
@@ -1787,7 +1841,8 @@ def phase_scan(dev, card: str, cfg=None, shapes=SCAN_SHAPES,
         times = _scan_kernels(card, f"{label} B={b}", pipe(), payloads,
                               timed=b > SLICE_BATCH)
         torch.cuda.empty_cache()
-        runs.append(_scan_run(dev, card, label, pipe(), payloads, (4, 2),
+        runs.append(_scan_run(dev, card, label, pipe(), payloads,
+                              {"encoder": 4, "decoder": 2, "pusch_llr": 2},
                               dispatches, 1.0) | {"times": times})
         del payloads
         torch.cuda.empty_cache()
@@ -1809,7 +1864,8 @@ def phase_flagship_scan(dev, card: str, cfg=None, b: int = SLICE_BATCH,
                        generator=torch.Generator(device=dev).manual_seed(10))
     _scan_kernels(card, f"{label} B={b}", pipe(), tb, timed=False)
     torch.cuda.empty_cache()
-    return _scan_run(dev, card, label, pipe(), tb, (1, 1), 10, 1.5)
+    return _scan_run(dev, card, label, pipe(), tb,
+                     {"encoder": 1, "decoder": 1, "pusch_llr": 1}, 10, 1.5)
 
 
 def phase_accumulate(dev, card: str, cfg=None, b: int = SLICE_BATCH) -> dict:
@@ -1840,7 +1896,7 @@ def phase_accumulate(dev, card: str, cfg=None, b: int = SLICE_BATCH) -> dict:
     _check(ok == bool(oks.all()) and ok and n == 3 * b and rel <= 1e-6,
            f"accumulate ({ok}, {mean!r}, {n}) != drain ({bool(oks.all())}, "
            f"{sinrs.mean()!r}, {oks.size})")
-    _check(launches == {"encoder": 12, "decoder": 6},
+    _check(launches == {"encoder": 12, "decoder": 6, "pusch_llr": 6},
            f"accumulate launches {launches}")
     print(f"[accumulate] {cfg.nof_prb}-PRB mixed slot, 3 eager submits of "
           f"{b}: fetch_accumulated ({ok}, {mean:.6f} dB, {n}) equals the "
@@ -2083,8 +2139,8 @@ def _app_run(dev, card: str, label: str, raw: dict) -> dict:
         rep = gnb.run()
         wall = time.perf_counter() - t0
         launches = kernel_taps.launch_counts()
-    _check(launches["encoder"] > 0 and launches["decoder"] > 0
-           and sum(launches.values()) == len(sink.eager),
+    _check(all(launches.values())
+           and kernel_taps.tapped_launches(launches) == len(sink.eager),
            f"{label}: launches {launches}, {len(sink.eager)} tapped calls")
     times, counts = _app_launches(card, label, sink)
     return {"gnb": gnb, "rep": rep, "rec": rec, "wall": wall,
@@ -2502,8 +2558,8 @@ def phase_fronthaul(dev, card: str, car=None) -> dict:
             res.tb_bits[0].cpu().numpy(), data.transport_blocks[0])
         torch.cuda.synchronize()
         launches = kernel_taps.launch_counts()
-    _check(launches["encoder"] > 0 and launches["decoder"] > 0
-           and sum(launches.values()) == len(sink.eager),
+    _check(all(launches.values())
+           and kernel_taps.tapped_launches(launches) == len(sink.eager),
            f"{label}: launches {launches}, {len(sink.eager)} tapped calls")
 
     # ---- the verdicts
@@ -2566,10 +2622,11 @@ def _host_calls(dev, calls: list[dict]) -> list[dict]:
 
 def _rank_launches(label: str, results: list[dict]) -> dict:
     """The summed launch counts of mixed carrier steps, one per rank
-    result, each 4 encoder and 2 decoder launches, all tapped."""
-    launches = {"encoder": 0, "decoder": 0}
+    result, each 4 encoder, 2 decoder (all tapped) and 2 pusch_llr
+    launches."""
+    launches = _no_launches()
     for res in results:
-        _check(res["launches"] == {"encoder": 4, "decoder": 2}
+        _check(res["launches"] == {"encoder": 4, "decoder": 2, "pusch_llr": 2}
                and len(res["calls"]) == 6, f"{label}: mixed carrier "
                f"launches {res['launches']}, {len(res['calls'])} tapped")
         for k in launches:
@@ -2629,7 +2686,7 @@ def phase_scale_out(dev, card: str, car=None, mixed=None) -> dict:
     mixed_launches = _rank_launches("scale-out", [a1, *b])
     launches = {k: a["launches"][k] + mixed_launches[k]
                 for k in mixed_launches}
-    _check(a["launches"] == {"encoder": 1, "decoder": 1},
+    _check(a["launches"] == {"encoder": 1, "decoder": 1, "pusch_llr": 1},
            f"scale-out nccl x1: flagship launches {a['launches']}")
     times_a, counts_a = _app_launches(card, "scale-out nccl x1",
                                       types.SimpleNamespace(
@@ -2710,7 +2767,7 @@ def _example(label: str, main, argv: list[str]) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = kernel_taps.launch_counts()
-    _check(sum(launches.values()) == len(sink.eager),
+    _check(kernel_taps.tapped_launches(launches) == len(sink.eager),
            f"{label}: launches {launches}, {len(sink.eager)} tapped calls")
     return {"res": res, "lines": out.getvalue().splitlines(), "wall": wall,
             "sink": sink, "launches": launches}
@@ -2727,7 +2784,7 @@ def phase_examples(dev, card: str, mixed_prb: int = 273,
     PHY loopback at its defaults and at full width, the SSB radio and the
     RRC attach; every verdict checked, every LDPC launch held against its
     plain version and each shape timed."""
-    runs, launches, times = {}, {"encoder": 0, "decoder": 0}, []
+    runs, launches, times = {}, _no_launches(), []
     mixed_argv = ["--prb", str(mixed_prb)]
     for label, main, argv in (
             ("mixed_slot_demo", mixed_slot_demo.main, mixed_argv),
@@ -2743,12 +2800,13 @@ def phase_examples(dev, card: str, mixed_prb: int = 273,
             launches[k] += r["launches"][k]
     m = runs["mixed_slot_demo"]
     _check(m["res"]["device"] == str(dev) and bool(m["res"]["out"]["ok"])
-           and m["launches"] == {"encoder": 4, "decoder": 2},
+           and m["launches"] == {"encoder": 4, "decoder": 2, "pusch_llr": 2},
            f"mixed_slot_demo: ok {m['res']['out']['ok']} on "
            f"{m['res']['device']}, launches {m['launches']}")
     warm = _example("mixed_slot_demo warm", mixed_slot_demo.main, mixed_argv)
     _check(bool(warm["res"]["out"]["ok"])
-           and warm["launches"] == {"encoder": 4, "decoder": 2},
+           and warm["launches"] == {"encoder": 4, "decoder": 2,
+                                    "pusch_llr": 2},
            f"mixed_slot_demo warm: ok {warm['res']['out']['ok']}, launches "
            f"{warm['launches']}")
     t, warm["counts"] = _app_launches(card, "mixed_slot_demo warm",
@@ -2762,7 +2820,8 @@ def phase_examples(dev, card: str, mixed_prb: int = 273,
         sinr = [s for _, s, _ in r["slots"]]
         _check(r["device"] == str(dev) and all(ok for ok, _, _ in r["slots"])
                and abs(float(np.mean(sinr)) - snr) < 1.5
-               and runs[label]["launches"] == {"encoder": 8, "decoder": 8},
+               and runs[label]["launches"] == {"encoder": 8, "decoder": 8,
+                                               "pusch_llr": 8},
                f"{label}: slots {r['slots']} on {r['device']}, launches "
                f"{runs[label]['launches']}")
     ssb_run = runs["radio_ssb"]["res"]
@@ -2775,10 +2834,9 @@ def phase_examples(dev, card: str, mixed_prb: int = 273,
            and len(rrc_run["messages"]) == 8,
            f"rrc_attach_demo: {rrc_run['gnb_state']}, "
            f"{len(rrc_run['messages'])} messages")
-    _check(runs["radio_ssb"]["launches"] == {"encoder": 0, "decoder": 0}
-           and runs["rrc_attach_demo"]["launches"]
-           == {"encoder": 0, "decoder": 0}, "an example without LDPC "
-           "launched an LDPC kernel")
+    _check(runs["radio_ssb"]["launches"] == _no_launches()
+           and runs["rrc_attach_demo"]["launches"] == _no_launches(),
+           "an example without a shared channel launched a kernel")
     loops = [f"{label}: {runs[label]['lines'][0]}, "
              f"{len(runs[label]['res']['slots'])} slots CRC ok, SINR "
              f"{min(s for _, s, _ in runs[label]['res']['slots']):.2f}-"
@@ -2808,12 +2866,14 @@ def phase_examples(dev, card: str, mixed_prb: int = 273,
 
 
 def _kernel_entry(name: str, kind: str, paths: list[dict],
-                  max_err: float) -> dict:
+                  max_err: float, timed: list[dict] | None = None) -> dict:
     """One kernels-JSON entry: launches of every driven path (each counted
-    from 0 over its own run); times and bounds of one launch at each of
-    their shapes, added up.  No single PyTorch call computes an LDPC encode
-    or a layered min-sum decode, so library_ms is null."""
-    recs = [r for p in paths for r in p["times"] if r["kind"] == kind]
+    from 0 over its own run); times and bounds of one launch at each shape
+    of the timed phases (by default the same paths), added up.  No single PyTorch call computes an LDPC
+    encode, a layered min-sum decode or the PUSCH LLR stage, so library_ms
+    is null."""
+    recs = [r for p in timed or paths for r in p["times"]
+            if r["kind"] == kind]
     ms = sum(r["ms"] for r in recs)
     bound = sum(r["bound_ms"] for r in recs)
     by = [r["bound_by"] for r in recs]
@@ -2822,7 +2882,8 @@ def _kernel_entry(name: str, kind: str, paths: list[dict],
             "replaces": {"encoder": "srsran_project_23_5_tpu/ops/ldpc/"
                                     "encoder_pallas.py:84",
                          "decoder": "srsran_project_23_5_tpu/ops/ldpc/"
-                                    "decoder_pallas.py:195"}[kind],
+                                    "decoder_pallas.py:195",
+                         "pusch_llr": None}[kind],
             "launches": sum(p["launches"][kind] for p in paths),
             "max_abs_err": max_err, "ms": ms,
             "plain_ms": sum(r["plain_ms"] for r in recs),
@@ -2839,6 +2900,7 @@ def main() -> None:
     phase_build(card)
     enc_err = phase_encoder(dev, card)
     dec_err = phase_decoder(dev, card)
+    llr = phase_pusch_llr(dev, card)
     s = phase_slice(dev, card)
     phase_profile(card, "profile", s["pipe"], s["tb"], SLICE_BATCH)
     m = phase_mixed(dev, card)
@@ -2866,7 +2928,9 @@ def main() -> None:
     print(json.dumps({"kernels": [
         _kernel_entry("ldpc_encoder", "encoder", paths, enc_err),
         _kernel_entry("ldpc_decoder", "decoder", paths,
-                      max(dec_err, u["max_err"]))]}))
+                      max(dec_err, u["max_err"])),
+        _kernel_entry("pusch_llr", "pusch_llr", paths, llr["max_err"],
+                      timed=[llr])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

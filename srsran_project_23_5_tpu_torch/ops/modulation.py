@@ -5,6 +5,10 @@ and π/2-BPSK (mapping only), QPSK, 16QAM, 64QAM and 256QAM.  NR QAM is
 Gray-labelled square QAM with independent I/Q axes, so each axis maps and
 demaps as PAM; ``modulate_lut`` is the constellation-table mapper.  LLRs
 follow ln(P(0)/P(1)) (positive ⇒ bit 0).
+
+``pusch_llr`` is the PUSCH LLR stage (demap, layer demap, descramble,
+clip) in one CUDA kernel, ``csrc/pusch_llr.cu``; ``pusch_llr_plain`` is the
+same stage in plain PyTorch, which the wrapper takes only for a CPU tensor.
 """
 from __future__ import annotations
 
@@ -14,6 +18,9 @@ import numpy as np
 import torch
 
 from ..ran.constants import LLR_MAX
+from ..utils import kernels
+from ..utils.tracing import tracer
+from .precoding import layer_demap_llr
 
 #: modulation scheme → bits per symbol
 QM = {"BPSK": 1, "QPSK": 2, "QAM16": 4, "QAM64": 6, "QAM256": 8}
@@ -166,3 +173,87 @@ def demodulate_soft(symbols: torch.Tensor, noise_var: torch.Tensor,
     llr = torch.stack([axis_llr(symbols.real), axis_llr(symbols.imag)],
                       dim=-1).reshape(*lead, symbols.shape[-1], qm)
     return (llr / noise_var[..., None]).reshape(*lead, -1)
+
+
+def pusch_llr_plain(x_hat: torch.Tensor, post_nv: torch.Tensor,
+                    sign: torch.Tensor, qm: int) -> torch.Tensor:
+    """The PUSCH LLR stage in plain PyTorch: equalised symbols x_hat
+    [B, S] (one layer) or [B, L, S] complex64 with their post-equalisation
+    noise variance (same shape, float32) → the clipped, descrambled codeword
+    LLRs [B, L·S·qm] (sign [L·S·qm] ±1)."""
+    llr = demodulate_soft(x_hat, post_nv, qm)
+    if x_hat.dim() == 3:
+        llr = layer_demap_llr(llr, qm)
+    return torch.clamp(llr * sign, -float(LLR_MAX), float(LLR_MAX))
+
+
+_QPSK_GAIN = float(np.float32(2.0 * np.sqrt(2.0)))
+
+
+def _stage_shape(x_hat: torch.Tensor, post_nv: torch.Tensor,
+                 sign: torch.Tensor, qm: int) -> tuple[int, int, int]:
+    """(B, L, S) of the stage's inputs; raises where they do not fit."""
+    _check_qm(qm)
+    if x_hat.dim() not in (2, 3):
+        raise ValueError(f"x_hat is [B, S] or [B, L, S], got "
+                         f"{tuple(x_hat.shape)}")
+    batch, nsym = x_hat.shape[0], x_hat.shape[-1]
+    layers = x_hat.shape[1] if x_hat.dim() == 3 else 1
+    if (post_nv.shape != x_hat.shape
+            or sign.shape != (layers * nsym * qm,)):
+        raise ValueError(f"noise {tuple(post_nv.shape)} and sign "
+                         f"{tuple(sign.shape)} do not fit symbols "
+                         f"{tuple(x_hat.shape)} at qm={qm}")
+    return batch, layers, nsym
+
+
+def _launch(x_hat: torch.Tensor, post_nv: torch.Tensor, sign: torch.Tensor,
+            qm: int) -> torch.Tensor:
+    """One kernel launch over the batch."""
+    batch, layers, nsym = _stage_shape(x_hat, post_nv, sign, qm)
+    if (x_hat.dtype != torch.complex64 or x_hat.is_conj()
+            or post_nv.dtype != torch.float32 or sign.dtype != torch.float32):
+        raise ValueError(f"pusch_llr takes complex64 symbols and float32 "
+                         f"noise and sign, got {x_hat.dtype}, "
+                         f"{post_nv.dtype}, {sign.dtype}")
+    if post_nv.device != x_hat.device or sign.device != x_hat.device:
+        raise ValueError(f"pusch_llr inputs on {x_hat.device}, "
+                         f"{post_nv.device}, {sign.device}")
+    if not (x_hat.is_contiguous() and post_nv.is_contiguous()
+            and sign.is_contiguous()) or sign.data_ptr() % 8:
+        raise ValueError("pusch_llr takes contiguous inputs, the sign "
+                         "8-byte aligned")
+    out = torch.empty((batch, layers * nsym * qm), dtype=torch.float32,
+                      device=x_hat.device)
+    if out.numel() == 0:
+        return out
+    levels = pam_levels(qm)
+    err = kernels.library().lib.pusch_llr(
+        x_hat.data_ptr(), post_nv.data_ptr(), sign.data_ptr(),
+        out.data_ptr(), batch, layers, nsym, qm, levels.ctypes.data,
+        _QPSK_GAIN, float(LLR_MAX),
+        torch.cuda.current_stream(x_hat.device).cuda_stream)
+    kernels.check(err, "pusch_llr launch")
+    return out
+
+
+def pusch_llr(x_hat: torch.Tensor, post_nv: torch.Tensor, sign: torch.Tensor,
+              qm: int) -> torch.Tensor:
+    """The PUSCH LLR stage (as ``pusch_llr_plain``): the CUDA kernel for a
+    CUDA tensor, bit-identical to the plain chain on the card; the plain
+    chain for a CPU tensor.  ``pusch_llr.launches`` counts kernel launches;
+    the tracer counts ``pusch.llr_kernel`` or ``pusch.llr_plain`` per call."""
+    if x_hat.device.type == "cpu":
+        _stage_shape(x_hat, post_nv, sign, qm)
+        tracer.add("pusch.llr_plain")
+        return pusch_llr_plain(x_hat, post_nv, sign, qm)
+    if x_hat.device.type != "cuda":
+        raise ValueError(f"no PUSCH LLR kernel for device {x_hat.device}")
+    tracer.add("pusch.llr_kernel")
+    out = _launch(x_hat, post_nv, sign, qm)
+    if out.numel():
+        pusch_llr.launches += 1
+    return out
+
+
+pusch_llr.launches = 0

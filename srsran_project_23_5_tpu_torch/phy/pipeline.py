@@ -41,12 +41,9 @@ import numpy as np
 import torch
 
 from ..models import gnb_flagship
-from ..ops.ldpc import decoder_cuda, encoder_cuda
+from ..utils import graphs
 from ..utils.device import resolve as resolve_device
 from ..utils.tracing import tracer
-
-# the kernel wrappers whose ``launches`` count a replay adds to
-_KERNELS = (encoder_cuda.encode, decoder_cuda.decode)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,7 +129,7 @@ class SlotPipeline:
         self._static_payloads = None
         self._graph: torch.cuda.CUDAGraph | None = None
         self._graph_out: tuple[torch.Tensor, torch.Tensor] | None = None
-        self.captured_launches: tuple[int, ...] = (0,) * len(_KERNELS)
+        self.captured_launches = dict.fromkeys(graphs.KERNELS, 0)
         self.capture_seconds = 0.0
 
     # ------------------------------------------------------------ the step
@@ -301,8 +298,7 @@ class SlotPipeline:
         if self._graph is None:
             raise RuntimeError("warmup_scan captures the graph first")
         self._graph.replay()
-        for fn, n in zip(_KERNELS, self.captured_launches):
-            fn.launches += n
+        graphs.add_launches(self.captured_launches)
         return self._graph_out
 
     def _dispatch(self, batch, seed: int) -> tuple[torch.Tensor,
@@ -328,7 +324,7 @@ class SlotPipeline:
         with torch.cuda.stream(side):
             self.scan_step(self._static_payloads, noise)
         torch.cuda.current_stream(self.device).wait_stream(side)
-        before = tuple(fn.launches for fn in _KERNELS)
+        before = graphs.launch_counts()
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         try:
@@ -336,11 +332,11 @@ class SlotPipeline:
                 out = self.scan_step(self._static_payloads, noise)
         finally:
             # capture launches nothing: the counts grow on each replay
-            after = tuple(fn.launches for fn in _KERNELS)
-            for fn, n in zip(_KERNELS, before):
-                fn.launches = n
+            after = graphs.launch_counts()
+            graphs.set_launch_counts(before)
         self.capture_seconds = time.perf_counter() - t0
-        self.captured_launches = tuple(a - b for a, b in zip(after, before))
+        self.captured_launches = {k: after[k] - before[k]
+                                  for k in graphs.KERNELS}
         self._graph, self._graph_out = graph, out
 
     def warmup_scan(self, batch) -> tuple[float, bool, float]:

@@ -29,7 +29,7 @@ import torch
 from ...ops import dmrs, equalizer, estimator, gold, modulation, precoding
 from ...ops.ldpc import decoder_cuda, encoder_cuda, rate_match, segmentation
 from ...ran import ldpc_params, vrb_prb
-from ...ran.constants import LLR_MAX, NRE
+from ...ran.constants import NRE
 from . import ulsch
 
 # half the minimum distance of each constellation's axis
@@ -613,15 +613,13 @@ def pusch_demodulate(rx_grid: torch.Tensor, cfg: ShConfig,
     est, x_hat, post_nv, noise_var = _equalize(_to_virtual(rx_grid, cfg),
                                                cfg, tx_pilots)
     _, sign = _scramble_seq(cfg.scrambling_cinit, cfg.nof_bits, rx_grid.device)
-    llr = modulation.demodulate_soft(x_hat, post_nv, cfg.qm)
+    llr = modulation.pusch_llr(x_hat, post_nv, sign, cfg.qm)     # [B, G]
     if cfg.nof_layers > 1:
-        llr = precoding.layer_demap_llr(llr, cfg.qm)             # [B, G]
         evm = evm_calculate(x_hat.flatten(-2), cfg.qm)
         ta_norm = None
     else:
         evm = evm_calculate(x_hat, cfg.qm)
         ta_norm = est.ta_norm.mean(dim=-1)
-    llr = torch.clamp(llr * sign, -float(LLR_MAX), float(LLR_MAX))
     if cfg.uci.any:
         sch_llr, ack, csi1, csi2 = ulsch.demultiplex(llr, cfg.uci_maps_key)
     else:

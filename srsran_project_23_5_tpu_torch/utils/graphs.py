@@ -26,9 +26,9 @@ the pool is shared safely only because an output is valid until the next
 replay of ANY program of the pool: a caller consumes each output, or
 copies it out, before it calls the next program.
 
-The LDPC kernel wrappers count launches in Python; a replay launches no
-Python, so each replay adds the launches its capture saw to
-``encoder_cuda.encode.launches`` and ``decoder_cuda.decode.launches``, as
+The kernel wrappers of ``KERNELS`` count launches in Python
+(``<wrapper>.launches``); a replay launches no Python, so each replay adds
+the launches its capture saw (``captured_launches``, by kernel name), as
 ``phy/pipeline.py`` does for its scan graph.  The eager warm-up's launches
 are real launches and stay counted.
 """
@@ -39,12 +39,15 @@ from typing import Callable
 
 import torch
 
+from ..ops import modulation
 from ..ops.ldpc import decoder_cuda, encoder_cuda
 from .device import resolve as resolve_device
 from .tracing import tracer
 
-# the kernel wrappers whose ``launches`` count a replay adds to
-_KERNELS = (encoder_cuda.encode, decoder_cuda.decode)
+#: the kernel wrappers whose ``launches`` count a replay adds to, by name
+KERNELS: dict[str, Callable] = {"encoder": encoder_cuda.encode,
+                                "decoder": decoder_cuda.decode,
+                                "pusch_llr": modulation.pusch_llr}
 
 
 def _flatten(tree, leaves: list) -> object:
@@ -69,8 +72,22 @@ def _rebuild(shape, leaves: list):
     return None if shape is None else leaves[shape]
 
 
-def _launch_counts() -> tuple[int, ...]:
-    return tuple(fn.launches for fn in _KERNELS)
+def launch_counts() -> dict[str, int]:
+    """Each kernel wrapper's launch count, by name."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def set_launch_counts(counts: dict[str, int] | None = None) -> None:
+    """Set every wrapper's launch count to ``counts[name]`` (0 without
+    `counts`)."""
+    for name, fn in KERNELS.items():
+        fn.launches = counts[name] if counts else 0
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """Add what a replay launched (``counts[name]`` per kernel)."""
+    for name, fn in KERNELS.items():
+        fn.launches += counts[name]
 
 
 class GraphPool:
@@ -119,7 +136,7 @@ class Program:
         self._leaves: list[torch.Tensor] = []
         self.graph: torch.cuda.CUDAGraph | None = None
         self.out = None
-        self.captured_launches = (0,) * len(_KERNELS)
+        self.captured_launches = dict.fromkeys(KERNELS, 0)
 
     @property
     def inputs(self) -> tuple:
@@ -178,24 +195,22 @@ class Program:
         with torch.cuda.stream(side):
             self.fn(*self.inputs)
         torch.cuda.current_stream(dev).wait_stream(side)
-        before = _launch_counts()
+        before = launch_counts()
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph, pool=self.pool.handle):
                 out = self.fn(*self.inputs)
         finally:
             # capture launches nothing: the counts grow on each replay
-            after = _launch_counts()
-            for fn, n in zip(_KERNELS, before):
-                fn.launches = n
-        self.captured_launches = tuple(a - b for a, b in zip(after, before))
+            after = launch_counts()
+            set_launch_counts(before)
+        self.captured_launches = {k: after[k] - before[k] for k in KERNELS}
         self.graph, self.out = graph, out
         self.pool.captures += 1
         self.pool.capture_seconds += time.perf_counter() - t0
 
     def _replay(self):
         self.graph.replay()
-        for fn, n in zip(_KERNELS, self.captured_launches):
-            fn.launches += n
+        add_launches(self.captured_launches)
         self.pool.replays += 1
         return self.out

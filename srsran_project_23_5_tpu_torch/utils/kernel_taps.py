@@ -8,8 +8,10 @@ call's tensors, and ``mismatches`` holds each against the plain version.
 A captured program (``utils/graphs.py``) launches no Python when it
 replays: the copies its capture recorded are refreshed by each replay and
 copied out right after it, so every launch of the block is in the sink.
-``launch_counts`` reads the wrappers' counters, which count kernel
-launches only (a CPU tensor runs the plain version).
+``launch_counts`` reads the counters of every counted kernel wrapper
+(``graphs.KERNELS``: the two LDPC kernels, which are tapped, and the
+PUSCH LLR stage, which is not), which count kernel launches only (a CPU
+tensor runs the plain version).
 """
 from __future__ import annotations
 
@@ -91,14 +93,18 @@ def tapped_kernels():
         graphs.Program._capture, graphs.Program._replay = capture, replay
 
 
-def launch_counts() -> dict[str, int]:
-    return {"encoder": encoder_cuda.encode.launches,
-            "decoder": decoder_cuda.decode.launches}
+launch_counts = graphs.launch_counts
 
 
-def reset_launch_counts() -> None:
-    encoder_cuda.encode.launches = 0
-    decoder_cuda.decode.launches = 0
+def reset_launch_counts(counts: dict[str, int] | None = None) -> None:
+    """Every counter to 0, or to what `counts` (``launch_counts()``)
+    held."""
+    graphs.set_launch_counts(counts)
+
+
+def tapped_launches(counts: dict[str, int]) -> int:
+    """The launches of `counts` that ``tapped_kernels`` records."""
+    return counts["encoder"] + counts["decoder"]
 
 
 _PLAIN = {"encode": encoder_cuda.encode_plain,

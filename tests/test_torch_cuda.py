@@ -17,12 +17,12 @@ from srsran_project_23_5_tpu_torch.models import (fapi_carrier, gnb_flagship,
                                                   gnb_mixed)
 from srsran_project_23_5_tpu_torch.ops.ldpc import (decoder_cuda,
                                                     encoder_cuda, graphs)
-from srsran_project_23_5_tpu_torch.ops import prach
+from srsran_project_23_5_tpu_torch.ops import modulation, prach
 from srsran_project_23_5_tpu_torch.parallel import launch
 from srsran_project_23_5_tpu_torch.phy import pipeline
 from srsran_project_23_5_tpu_torch.phy.lower import lower_phy, prach_demod
-from srsran_project_23_5_tpu_torch.phy.upper import (pdcch, slot_programs, ssb,
-                                                     upper_phy)
+from srsran_project_23_5_tpu_torch.phy.upper import (pdcch, sch, slot_programs,
+                                                     ssb, upper_phy)
 from srsran_project_23_5_tpu_torch.utils import kernel_taps
 
 torch.set_num_threads(1)
@@ -118,6 +118,109 @@ def _full_graph_matches_plain(cuda, bg, zc, snr):
         assert n_ok == 24 and np.array_equal(bits.cpu().numpy(), msg)
     else:
         assert 0 < n_ok < 24, f"{n_ok} of 24 converge: no mixed convergence"
+
+
+def _cell_pusch(name: str):
+    """A PUSCH config of a benchmark cell's carrier and the batch its cell
+    runs it at."""
+    mixed = gnb_mixed.default_mixed()
+    car = fapi_carrier.default_carrier()
+    return {"mixed_pusch0": (mixed.pusch0, 64),
+            "mixed_pusch1": (mixed.pusch1, 64),
+            "fapi_pusch_a": (car.pusch_a, 1),
+            "fapi_pusch_b": (car.pusch_b, 1)}[name]
+
+
+def _llr_stage_inputs(dev, seed, qm, layers, batch, nsym, sign=None):
+    """Symbols around the constellation with a few far outside it, a NaN
+    symbol, noise variances over six decades with 1e-30, 1e30 and 0 among
+    them, a ±1 sign (or the given one)."""
+    rng = np.random.default_rng(seed)
+    shape = (batch, nsym) if layers == 1 else (batch, layers, nsym)
+    x = (0.8 * (rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+         ).astype(np.complex64)
+    nv = (10 ** rng.uniform(-3, 3, shape)).astype(np.float32)
+    xf, nf = x.reshape(-1), nv.reshape(-1)
+    edge = [(5.0 - 3.0j, None), (-40.0 + 1e3j, None), (1e17 + 0.2j, None),
+            (np.nan + 0.5j, None), (0.3 + 0.3j, 1e-30), (-0.7 + 0.1j, 1e30),
+            (0.1 - 0.9j, 0.0), (0j, 0.0)]
+    for k, (sym, var) in enumerate(edge[:xf.size]):
+        pos = (k * 7919) % xf.size
+        xf[pos] = sym
+        if var is not None:
+            nf[pos] = var
+    if sign is None:
+        sign = torch.from_numpy((1 - 2 * rng.integers(
+            0, 2, layers * nsym * qm)).astype(np.float32)).to(dev)
+    return torch.from_numpy(x).to(dev), torch.from_numpy(nv).to(dev), sign
+
+
+_LLR_CASES = ([(qm, layers, batch, 1531) for qm in (2, 4, 6, 8)
+               for layers in (1, 2, 4) for batch in (1, 3, 64)]
+              + [(6, 2, 64, 0), (6, 1, 0, 77), (8, 4, 2, 1), (4, 1, 5, 33)]
+              + ["mixed_pusch0", "mixed_pusch1", "fapi_pusch_a",
+                 "fapi_pusch_b"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _LLR_CASES, ids=str)
+def test_pusch_llr_kernel_matches_plain(cuda, case):
+    """The PUSCH LLR kernel is bit-identical to the plain chain on the card
+    (NaN where it gives NaN), at odd S and at the four PUSCH shapes the
+    benchmark cells run, with their own scrambling signs; B = 0 and S = 0
+    give an empty output and launch nothing; each call with REs is one
+    launch."""
+    if isinstance(case, str):
+        cfg, batch = _cell_pusch(case)
+        qm, layers = cfg.qm, cfg.nof_layers
+        nsym = cfg.nof_bits // (qm * layers)
+        _, sign = sch._scramble_seq(cfg.scrambling_cinit, cfg.nof_bits, cuda)
+        x, nv, sign = _llr_stage_inputs(cuda, 3, qm, layers, batch, nsym,
+                                        sign)
+    else:
+        qm, layers, batch, nsym = case
+        x, nv, sign = _llr_stage_inputs(cuda, qm + layers + batch, qm,
+                                        layers, batch, nsym)
+    before = modulation.pusch_llr.launches
+    got = modulation.pusch_llr(x, nv, sign, qm)
+    torch.cuda.synchronize()
+    assert got.shape == (batch, layers * nsym * qm)
+    assert modulation.pusch_llr.launches == before + (got.numel() > 0)
+    if got.numel():         # the plain chain cannot reshape an empty batch
+        torch.testing.assert_close(
+            got, modulation.pusch_llr_plain(x, nv, sign, qm), rtol=0, atol=0,
+            equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_pusch_llr_kernel_in_a_graph(cuda):
+    """A captured launch replays to the eager call's output on new inputs
+    in the same buffers; the capture counts its one launch; a CPU-side
+    input or a non-contiguous one is refused."""
+    qm, layers, batch, nsym = 6, 2, 8, 1531
+    x, nv, sign = _llr_stage_inputs(cuda, 5, qm, layers, batch, nsym)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        modulation.pusch_llr(x, nv, sign, qm)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = modulation.pusch_llr.launches
+    with torch.cuda.graph(graph):
+        out = modulation.pusch_llr(x, nv, sign, qm)
+    assert modulation.pusch_llr.launches == before + 1
+    x2, nv2, _ = _llr_stage_inputs(cuda, 6, qm, layers, batch, nsym)
+    x.copy_(x2)
+    nv.copy_(nv2)
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, modulation.pusch_llr(x2, nv2, sign, qm),
+                               rtol=0, atol=0, equal_nan=True)
+    with pytest.raises(ValueError):
+        modulation.pusch_llr(x, nv, sign.cpu(), qm)
+    with pytest.raises(ValueError):
+        modulation.pusch_llr(x.transpose(1, 2).contiguous().transpose(1, 2),
+                             nv, sign, qm)
 
 
 @pytest.mark.cuda
@@ -338,7 +441,8 @@ def test_mixed_scan_replay_equals_eager(cuda):
     pay = gnb_mixed.make_payloads(cfg, np.random.default_rng(31), b, "cuda")
     _, ok, mean = pipe.warmup_scan(pay)
     assert ok and abs(mean - 20.0) < 1.0
-    assert pipe.captured_launches == (4 * k, 2 * k)
+    assert pipe.captured_launches == {"encoder": 4 * k, "decoder": 2 * k,
+                                      "pusch_llr": 2 * k}
     replay, eager = _replay_vs_eager(pipe, pay, 5)
     assert replay[0] and replay[0] == eager[0]
     assert abs(replay[1] - eager[1]) <= 1e-6 * abs(eager[1])
@@ -367,7 +471,8 @@ def test_flagship_scan_capture(cuda):
                        dtype=torch.int8)
     _, ok, mean = pipe.warmup_scan(tb)
     assert ok and abs(mean - 20.0) < 1.5
-    assert pipe.captured_launches == (k, k)
+    assert pipe.captured_launches == {"encoder": k, "decoder": k,
+                                      "pusch_llr": k}
     replay, eager = _replay_vs_eager(pipe, tb, 3)
     assert replay[0] and replay[0] == eager[0]
     assert abs(replay[1] - eager[1]) <= 1e-6 * abs(eager[1])
@@ -518,9 +623,9 @@ def test_async_lower_phy_on_card_matches_cpu(cuda):
 def test_gnb_app_loopback_on_card(cuda):
     """The gNB app's over-the-air loopback on the card (52 PRB, 160 slots,
     28 dB, 2+2 packets, the app's default platform): the UE reaches RRC
-    ACTIVE with every packet delivered, both kernels ran, and every launch
-    (eager, or of a replay of a captured program) equals its plain version
-    on the same inputs."""
+    ACTIVE with every packet delivered, both LDPC kernels and the PUSCH LLR
+    kernel ran, and every LDPC launch (eager, or of a replay of a captured
+    program) equals its plain version on the same inputs."""
     from srsran_project_23_5_tpu_torch.apps import gnb as app_gnb
     gnb = app_gnb.Gnb(app_gnb.GnbConfig(
         slots=160, phy="loopback", ue_dl_packets=2, ue_ul_packets=2,
@@ -534,7 +639,8 @@ def test_gnb_app_loopback_on_card(cuda):
     assert rep["ue_dl_rx_packets"] == rep["core_ul_rx_packets"] == 2, rep
     assert rep["phy_stats"]["rar_decoded"] == 1, rep
     assert {c["fn"] for c in sink.eager} == {"encode", "decode"}
-    assert sum(launches.values()) == len(sink.eager)
+    assert kernel_taps.tapped_launches(launches) == len(sink.eager)
+    assert launches["pusch_llr"] > 0
     assert all(c["x"].is_cuda for c in sink.eager)
     assert kernel_taps.mismatches(sink.eager) == []
     assert gnb._phy.graphs.replays > 0 and gnb._phy.upper.graphs.replays > 0
@@ -582,7 +688,8 @@ def test_upper_phy_replays_equal_eager(cuda):
         grids.append((phy.process_dl_slot(req, data),
                       cpu.process_dl_slot(req, data)))
         prog = phy.dl_programs.get(slot_programs.dl_signature(req)).program
-        assert prog.captured_launches == (len(req.pdsch_pdus), 0)
+        assert prog.captured_launches == {
+            "encoder": len(req.pdsch_pdus), "decoder": 0, "pusch_llr": 0}
         assert encoder_cuda.encode.launches - e0 == len(req.pdsch_pdus) * (
             1 + phy.graphs.captures - c0)
         _assert_replay_equals_eager(prog, grids[-1][0])
@@ -594,7 +701,9 @@ def test_upper_phy_replays_equal_eager(cuda):
                                    prach_rx=prach_rx)
         prog = phy.ul_programs.get(slot_programs.signature(ul)).program
         groups = slot_programs.decode_groups(slot_programs.signature(ul)[0])
-        assert prog.captured_launches == (0, len(groups))
+        assert prog.captured_launches == {
+            "encoder": 0, "decoder": len(groups),
+            "pusch_llr": len(ul.pusch_pdus)}
         assert phy.graphs.replays == r0 + 1
         if slot >= 2:           # a replay of the graph slot - 2 captured
             assert decoder_cuda.decode.launches - d0 == len(groups)
@@ -747,18 +856,19 @@ def test_sharded_flagship_nccl_world_of_one(cuda):
         res = entry.carrier_step_check(0, dev, car, tb, noise, 4)
     assert res["ok"].all() and torch.equal(res["ok"], res["ok_ref"])
     assert float((res["sinr"] - res["sinr_ref"]).abs().max()) <= 1e-3
-    assert res["launches"] == {"encoder": 1, "decoder": 1}
+    assert res["launches"] == {"encoder": 1, "decoder": 1, "pusch_llr": 1}
     assert len(res["calls"]) == 2 and res["mismatches"] == []
 
 
 @pytest.mark.cuda
 def test_dryrun_two_gloo_ranks_share_the_card(cuda):
     """Two spawned gloo ranks on cuda:0 run one tiny mixed carrier each and
-    the slot-sharded PRACH stream; each rank launched 4 encodes and 2
-    decodes, every one bit-exact."""
+    the slot-sharded PRACH stream; each rank launched 4 encodes, 2
+    decodes (every one bit-exact) and 2 PUSCH LLR stages."""
     ranks, _ = entry.dryrun_multichip(2, backend="gloo", device="cuda:0",
                                       cfg=gnb_mixed.tiny_mixed())
     for mixed, short, long_ in ranks:
-        assert mixed["launches"] == {"encoder": 4, "decoder": 2}
+        assert mixed["launches"] == {"encoder": 4, "decoder": 2,
+                                     "pusch_llr": 2}
         assert len(mixed["calls"]) == 6 and mixed["mismatches"] == []
         assert short["rel_err"] <= 1e-4 and long_["rel_err"] <= 1e-4

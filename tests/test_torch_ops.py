@@ -118,6 +118,80 @@ def test_modulate_pi2_bpsk():
     _close(got, want, 1e-5)
 
 
+def _llr_stage_inputs(rng, qm, layers, batch, nsym):
+    """Symbols [B, S] (one layer) or [B, L, S], post noise variance of the
+    same shape, a ±1 sign [L·S·qm]."""
+    shape = (batch, nsym) if layers == 1 else (batch, layers, nsym)
+    x = _cplx(rng, shape, 0.8)
+    nv = (10 ** rng.uniform(-2.5, 0.5, shape)).astype(np.float32)
+    sign = (1 - 2 * rng.integers(0, 2, layers * nsym * qm)).astype(np.float32)
+    return x, nv, sign
+
+
+@pytest.mark.parametrize("layers", [1, 2, 4])
+@pytest.mark.parametrize("qm", [2, 4, 6, 8])
+def test_pusch_llr_plain_is_the_stage(qm, layers):
+    """``pusch_llr_plain`` is the chain ``pusch_demodulate`` ran before the
+    kernel (demap, layer demap for several layers, × sign, clip), exactly,
+    and the JAX package's demap and layer demap within float32."""
+    rng = np.random.default_rng(60 + 10 * qm + layers)
+    x, nv, sign = _llr_stage_inputs(rng, qm, layers, 3, 41)
+    xt, nvt, st = (torch.from_numpy(a) for a in (x, nv, sign))
+    llr = tmodulation.demodulate_soft(xt, nvt, qm)
+    if layers > 1:
+        llr = tprecoding.layer_demap_llr(llr, qm)
+    old = torch.clamp(llr * st, -120.0, 120.0)
+    got = tmodulation.pusch_llr_plain(xt, nvt, st, qm)
+    assert got.shape == (3, layers * 41 * qm) and torch.equal(got, old)
+    ref = modulation.demodulate_soft(jnp.asarray(x), jnp.asarray(nv), qm)
+    if layers > 1:
+        ref = precoding.layer_demap_llr(ref, qm)
+    _close(got, np.clip(np.asarray(ref) * sign, -120.0, 120.0), 1e-5)
+
+
+@pytest.fixture
+def traced():
+    """The process tracer on, inside one open span; off and empty after."""
+    from srsran_project_23_5_tpu_torch.utils.tracing import tracer
+    tracer.clear()
+    tracer.enabled = True
+    try:
+        with tracer.span("test.stage", "test") as span:
+            yield span
+    finally:
+        tracer.enabled = False
+        tracer.clear()
+
+
+def test_pusch_llr_takes_the_plain_path_on_the_cpu(traced):
+    rng = np.random.default_rng(70)
+    before = tmodulation.pusch_llr.launches
+    for layers in (1, 2):
+        x, nv, sign = _llr_stage_inputs(rng, 6, layers, 2, 17)
+        args = tuple(torch.from_numpy(a) for a in (x, nv, sign))
+        assert torch.equal(tmodulation.pusch_llr(*args, 6),
+                           tmodulation.pusch_llr_plain(*args, 6))
+    assert traced.counts == {"pusch.llr_plain": 2}
+    assert tmodulation.pusch_llr.launches == before
+
+
+@pytest.mark.parametrize("case", ["qm", "qm1", "nv_shape", "sign_len",
+                                  "rank"])
+def test_pusch_llr_refuses_what_does_not_fit(case):
+    rng = np.random.default_rng(71)
+    x, nv, sign = (torch.from_numpy(a)
+                   for a in _llr_stage_inputs(rng, 4, 2, 2, 9))
+    qm = {"qm": 5, "qm1": 1}.get(case, 4)
+    if case == "nv_shape":
+        nv = nv[:, :, :-1]
+    elif case == "sign_len":
+        sign = sign[:-4]
+    elif case == "rank":
+        x, nv = x[None], nv[None]
+    with pytest.raises(ValueError):
+        tmodulation.pusch_llr(x, nv, sign, qm)
+
+
 @pytest.mark.parametrize("scale", [1.0, 0.37, 4.0])
 def test_quantize_llr_and_hard_decision(scale):
     rng = np.random.default_rng(int(scale * 100))

@@ -218,8 +218,11 @@ def test_upper_phy_ul_slot_spans(tracer):
                 if r.name == "upper_phy.ul_prep"][0]
         # a new-data flag per PUSCH
         assert prep.counts == {"h2d": len(req.pusch_pdus)} and req.pusch_pdus
+        body = [r for r in tracer.records() if r.name == program][0]
+        # the PUSCH LLR stage once per PUSCH, on its plain path on the CPU
+        assert body.counts == {"pusch.llr_plain": len(req.pusch_pdus)}
         assert all(r.counts is None for r in tracer.records()
-                   if r is not prep)
+                   if r is not prep and r is not body)
 
 
 def test_per_pdu_path_has_no_spans(tracer):
