@@ -189,11 +189,12 @@ def carrier_step_check(rank: int, device: torch.device,
     mesh = mesh_lib.make_mesh(device=device)
     sharded = gnb_flagship.sharded_multi_carrier_step(mesh, cfg,
                                                       nof_ldpc_iterations)
-    (ok, sinr), taps = _tapped(lambda: sharded(tb, noise), device)
-    ok_ref, sinr_ref = gnb_flagship.multi_carrier_step(
+    (ok, sinr, errors), taps = _tapped(lambda: sharded(tb, noise), device)
+    ok_ref, sinr_ref, errors_ref = gnb_flagship.multi_carrier_step(
         cfg, nof_ldpc_iterations)(tb.to(device), noise.to(device))
-    return {"ok": ok, "sinr": sinr, "ok_ref": ok_ref, "sinr_ref": sinr_ref,
-            **taps, "step_ms": _step_ms(lambda: sharded(tb, noise), device)}
+    return {"ok": ok, "sinr": sinr, "bit_errors": errors, "ok_ref": ok_ref,
+            "sinr_ref": sinr_ref, "bit_errors_ref": errors_ref, **taps,
+            "step_ms": _step_ms(lambda: sharded(tb, noise), device)}
 
 
 def mixed_step_check(rank: int, device: torch.device,

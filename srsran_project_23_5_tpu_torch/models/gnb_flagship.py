@@ -18,6 +18,7 @@ segmented; 40984 gives the intended 11 codeblocks of 3752 payload bits.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 
 import torch
 
@@ -25,6 +26,8 @@ from ..parallel import mesh as mesh_lib
 from ..phy.lower import ofdm
 from ..phy.upper import sch
 from ..ran import numerology
+from ..utils import graphs
+from ..utils.tracing import tracer
 
 FLAGSHIP_TBS = 40984    # TS 38.214 TBS at R <= 1/4 (see the module note)
 
@@ -102,11 +105,13 @@ def loopback_slot(tb_bits: torch.Tensor, noise: torch.Tensor,
 
 def multi_carrier_step(cfg: CarrierConfig, nof_ldpc_iterations: int = 6):
     """The carrier-batched loopback step: ([C, A] bits, [C, slot_samples]
-    noise) → (ok [C], sinr [C]), the carriers one batch."""
+    noise) → (ok [C], sinr [C], bit_errors [C] int32), the carriers one
+    batch; bit_errors counts the decoded TB bits that differ from the sent
+    ones, so that a TB whose CRC passes with wrong bits shows."""
     def step(tb_batch: torch.Tensor, noise_batch: torch.Tensor):
-        ok, _, sinr = loopback_batch(tb_batch, noise_batch, cfg,
-                                     nof_ldpc_iterations)
-        return ok, sinr
+        ok, bits, sinr = loopback_batch(tb_batch, noise_batch, cfg,
+                                        nof_ldpc_iterations)
+        return ok, sinr, (bits != tb_batch).sum(dim=-1, dtype=torch.int32)
     return step
 
 
@@ -115,11 +120,31 @@ def sharded_multi_carrier_step(mesh, cfg: CarrierConfig,
     """The multi-carrier step with the carrier axis split over `mesh`: every
     rank takes the global ([C, A], [C, slot_samples]) inputs, runs
     ``loopback_batch`` on its C / shards carriers on its own device and
-    gathers the global (ok [C], sinr [C])."""
+    gathers the global (ok [C], sinr [C], bit_errors [C]).
+
+    The rank's loopback is a captured program (``utils/graphs``) of its own
+    pool: on a card its first call warms up and captures it, and every
+    step after is one graph replay, so that the host's launches do not
+    pace the card; on the CPU it runs eagerly.  A replay's outputs live
+    until the next replay, and no longer need to: the gathers read them
+    after the replay (NCCL waits on the rank's stream) and the next replay
+    waits on the gathers (the stream waits on NCCL).
+
+    Traced as ``mesh.step`` (request: the step's index, counted per
+    returned function) around ``mesh.local``, ``mesh.loopback`` and
+    ``mesh.gather``."""
     shard = mesh_lib.carrier_sharding(mesh)
-    step = multi_carrier_step(cfg, nof_ldpc_iterations)
+    step = graphs.GraphPool(mesh_lib.mesh_device(mesh)).program(
+        multi_carrier_step(cfg, nof_ldpc_iterations))
+    index = itertools.count()
 
     def sharded(tb_batch: torch.Tensor, noise_batch: torch.Tensor):
-        ok, sinr = step(shard.local(tb_batch), shard.local(noise_batch))
-        return shard.gather(ok), shard.gather(sinr)
+        with tracer.span("mesh.step", "mesh", next(index)):
+            with tracer.span("mesh.local", "mesh"):
+                tb, noise = shard.local(tb_batch), shard.local(noise_batch)
+            with tracer.span("mesh.loopback", "mesh"):
+                ok, sinr, errors = step(tb, noise)
+            with tracer.span("mesh.gather", "mesh"):
+                return (shard.gather(ok), shard.gather(sinr),
+                        shard.gather(errors))
     return sharded

@@ -23,6 +23,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..utils.device import resolve
+from ..utils.tracing import tracer
 
 CARRIER_AXIS = "carrier"
 SLOT_AXIS = "slot"
@@ -107,11 +108,13 @@ class Sharding:
 
     def gather(self, y: torch.Tensor) -> torch.Tensor:
         """The global tensor from each rank's `y` (the rows ``local``
-        gave it), on this rank's device."""
+        gave it), on this rank's device.  Adds the bytes this rank sends to
+        the tracer's count ``mesh.gather_bytes``."""
         if self.axis is None:
             return y
         group = self.mesh.get_group(self.axis)
         send = y.contiguous()
+        tracer.add("mesh.gather_bytes", send.numel() * send.element_size())
         if host_staged(group, y):
             send = send.cpu()
         parts = [torch.empty_like(send)

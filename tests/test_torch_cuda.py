@@ -55,7 +55,9 @@ def _noisy_llr(rng, cw, snr_db, zc):
     (1, 208, 5), (2, 15, 7), (1, 36, 19), (2, 104, 9), (1, 320, 9),
     # the 273-PRB mixed slot at 8 slots per batch: pdsch0, pdsch1, pusch0,
     # pusch1
-    (1, 384, 128), (1, 384, 56), (1, 384, 136), (1, 352, 64)])
+    (1, 384, 128), (1, 384, 56), (1, 384, 136), (1, 352, 64),
+    # a card's step of the flagship273.mesh4 cell: 128 carriers x 5 CBs
+    (2, 352, 640)])
 def test_encoder_kernel_matches_plain(cuda, bg, zc, batch):
     gen = torch.Generator(device=cuda).manual_seed(10)
     k = graphs.lifted_graph(bg, zc).nof_msg_blocks * zc
@@ -77,7 +79,9 @@ def test_encoder_kernel_matches_plain(cuda, bg, zc, batch):
     (1, 352, 64, 6.0, 36), (1, 352, 64, np.linspace(2, 6, 64), 36),
     # its two PDSCH decoded on the UE side (ue_decode_dl)
     (1, 384, 128, 6.0, 34), (1, 384, 128, np.linspace(2, 6, 128), 34),
-    (1, 384, 56, 6.0, 34), (1, 384, 56, np.linspace(2, 6, 56), 34)])
+    (1, 384, 56, 6.0, 34), (1, 384, 56, np.linspace(2, 6, 56), 34),
+    # a card's step of the flagship273.mesh4 cell (BG2, Z=352, 43 blocks)
+    (2, 352, 640, 2.0, 43), (2, 352, 640, np.linspace(-5, -1, 640), 43)])
 def test_decoder_kernel_matches_plain(cuda, bg, zc, batch, snr, n_used):
     rng = np.random.default_rng(11)
     g = graphs.lifted_graph(bg, zc)
@@ -120,15 +124,21 @@ def _full_graph_matches_plain(cuda, bg, zc, snr):
         assert 0 < n_ok < 24, f"{n_ok} of 24 converge: no mixed convergence"
 
 
+# the flagship273.mesh4 cell's carrier: 273 PRB, QPSK, TBS 17416 (BG2)
+EDGE_CARRIER = (273, 2, 17416)
+
+
 def _cell_pusch(name: str):
     """A PUSCH config of a benchmark cell's carrier and the batch its cell
     runs it at."""
     mixed = gnb_mixed.default_mixed()
     car = fapi_carrier.default_carrier()
+    edge = gnb_flagship.default_carrier(*EDGE_CARRIER)
     return {"mixed_pusch0": (mixed.pusch0, 64),
             "mixed_pusch1": (mixed.pusch1, 64),
             "fapi_pusch_a": (car.pusch_a, 1),
-            "fapi_pusch_b": (car.pusch_b, 1)}[name]
+            "fapi_pusch_b": (car.pusch_b, 1),
+            "flagship_edge": (edge.sh, 128)}[name]
 
 
 def _llr_stage_inputs(dev, seed, qm, layers, batch, nsym, sign=None):
@@ -159,7 +169,7 @@ _LLR_CASES = ([(qm, layers, batch, 1531) for qm in (2, 4, 6, 8)
                for layers in (1, 2, 4) for batch in (1, 3, 64)]
               + [(6, 2, 64, 0), (6, 1, 0, 77), (8, 4, 2, 1), (4, 1, 5, 33)]
               + ["mixed_pusch0", "mixed_pusch1", "fapi_pusch_a",
-                 "fapi_pusch_b"])
+                 "fapi_pusch_b", "flagship_edge"])
 
 
 @pytest.mark.cuda
@@ -844,7 +854,8 @@ def test_ofh_sector_slot_on_the_card_equals_the_cpu(cuda):
 @pytest.mark.cuda
 def test_sharded_flagship_nccl_world_of_one(cuda):
     """The carrier-sharded flagship step on a one-rank NCCL world equals the
-    unsharded step; one launch of each kernel, bit-exact."""
+    unsharded step; the captured step's warm-up and replay launch each
+    kernel once, bit-exact."""
     car = gnb_flagship.tiny_carrier()
     gen = torch.Generator(device=cuda).manual_seed(4)
     tb = torch.randint(0, 2, (4, car.sh.tbs), generator=gen, device=cuda,
@@ -855,9 +866,37 @@ def test_sharded_flagship_nccl_world_of_one(cuda):
     with launch.world_of_one("nccl", cuda) as dev:
         res = entry.carrier_step_check(0, dev, car, tb, noise, 4)
     assert res["ok"].all() and torch.equal(res["ok"], res["ok_ref"])
+    assert res["bit_errors"].dtype == torch.int32
+    assert not res["bit_errors"].any()
+    assert torch.equal(res["bit_errors"], res["bit_errors_ref"])
     assert float((res["sinr"] - res["sinr_ref"]).abs().max()) <= 1e-3
-    assert res["launches"] == {"encoder": 1, "decoder": 1, "pusch_llr": 1}
-    assert len(res["calls"]) == 2 and res["mismatches"] == []
+    # the step's first call: the eager warm-up's launch of each kernel,
+    # then the capture's, which its replay adds
+    assert res["launches"] == {"encoder": 2, "decoder": 2, "pusch_llr": 2}
+    assert len(res["calls"]) == 4 and res["mismatches"] == []
+
+
+@pytest.mark.cuda
+def test_sharded_cell_edge_nccl_world_of_one(cuda):
+    """A card's share of the flagship273.mesh4 cell, 128 cell-edge carriers
+    at 5 dB, on a one-rank NCCL world: every TB decoded with no bit wrong,
+    equal to the unsharded step; the captured step's warm-up and replay
+    launch each kernel once, bit-exact."""
+    car = gnb_flagship.default_carrier(*EDGE_CARRIER)
+    gen = torch.Generator(device=cuda).manual_seed(18)
+    tb = torch.randint(0, 2, (128, car.sh.tbs), generator=gen, device=cuda,
+                       dtype=torch.int8)
+    sigma = float(np.sqrt(car.nfft) * 10 ** (-5.0 / 20))
+    nz = torch.randn((2, 128, car.slot_samples), generator=gen, device=cuda)
+    noise = torch.complex(nz[0], nz[1]) * (sigma / np.sqrt(2.0))
+    with launch.world_of_one("nccl", cuda) as dev:
+        res = entry.carrier_step_check(0, dev, car, tb, noise)
+    assert res["ok"].all() and torch.equal(res["ok"], res["ok_ref"])
+    assert not res["bit_errors"].any()
+    assert torch.equal(res["bit_errors"], res["bit_errors_ref"])
+    assert float((res["sinr"] - res["sinr_ref"]).abs().max()) <= 1e-3
+    assert res["launches"] == {"encoder": 2, "decoder": 2, "pusch_llr": 2}
+    assert len(res["calls"]) == 4 and res["mismatches"] == []
 
 
 @pytest.mark.cuda

@@ -2,7 +2,7 @@
 
 JAX runs its meshes on the conftest's 8 virtual CPU devices, as its own
 tests do; the port runs real ranks, gloo on the CPU, spawned by
-``parallel.launch`` (five spawns in this file, most serving several
+``parallel.launch`` (six spawns in this file, most serving several
 tests).  The same numpy inputs go through both:
 
 - the mesh coordinates of ``make_mesh(4)`` and ``make_mesh_2d(2, 2)``;
@@ -12,7 +12,11 @@ tests).  The same numpy inputs go through both:
   within 1e-4 relative, detection argmax equal;
 - ``sharded_multi_carrier_step(tiny_carrier)``, 8 carriers over 4 ranks,
   against the JAX step over the 8-device mesh: ok equal, SINR within 1e-3
-  dB; and against the port's own ``multi_carrier_step``;
+  dB; and against the port's own ``multi_carrier_step``, bit errors too;
+- the same step at 68 PRB, QPSK MCS 3 (BG2), 4 carriers over 2 ranks,
+  against the benchmark's reference flagship (``ranbench/reference``,
+  float64 receive stages): ok and decoded-TB bit errors equal, SINR within
+  ``REF_SINR_DB``;
 - ``mixed_carrier_step(tiny_mixed)``, 2 ranks × 1 carrier, on the JAX
   ``PRNGKey(s)`` draws against JAX ``slot_fn_for_pipeline`` per carrier: ok
   equal, SINR within 0.05 dB; ``global_verdict`` equal on both ranks;
@@ -50,10 +54,12 @@ from srsran_project_23_5_tpu.phy.upper import csi_rs, pdcch, sch, ssb
 from srsran_project_23_5_tpu.ran.constants import NRE
 from srsran_project_23_5_tpu_torch import convert
 from srsran_project_23_5_tpu_torch import entry as tentry
+from srsran_project_23_5_tpu_torch.models import gnb_flagship as tflagship
 from srsran_project_23_5_tpu_torch.models import gnb_mixed as tmixed
 from srsran_project_23_5_tpu_torch.parallel import launch
 from srsran_project_23_5_tpu_torch.parallel import mesh as tmesh
 from srsran_project_23_5_tpu_torch.parallel import slot_stream as tstream
+from ranbench.reference.models import gnb_flagship as ref_flagship
 from test_torch_mixed import _jax_noise
 
 torch.set_num_threads(1)
@@ -173,9 +179,64 @@ def test_sharded_carrier_step_matches_jax(four):
         assert torch.equal(rep["ok_ref"], rep["ok"])
         np.testing.assert_allclose(rep["sinr_ref"].numpy(),
                                    rep["sinr"].numpy(), rtol=0, atol=1e-3)
+        assert rep["bit_errors"].dtype == torch.int32
+        assert rep["bit_errors"].tolist() == [0] * CARRIERS
+        assert torch.equal(rep["bit_errors_ref"], rep["bit_errors"])
         # each rank ran one encode and one decode of its own 2 carriers
         assert [(c["fn"], c["x"].shape[0]) for c in rep["calls"]] == [
             ("encode", 2), ("decode", 2)]
+
+
+# the benchmark cell's link at 68 PRB: QPSK, TS 38.214 MCS 3 (R = 251/1024),
+# TBS 4360 by TS 38.214 5.1.3.2, LDPC base graph 2 with 2 codeblocks at
+# Z = 224, 5 dB per RE
+EDGE_PRB, EDGE_TBS, EDGE_SNR_DB, EDGE_CARRIERS = 68, 4360, 5.0, 4
+# The port's receive chain runs in float32, the reference's in float64 (its
+# own OFDM, estimator, ZF and demapper).  One float32 step of a 5 dB SINR
+# is 4.8e-7 dB, and the mean post-equalisation noise variance behind it,
+# summed over 8976 REs in float32, drifts by a few 1e-7 relative (~1e-6
+# dB): 1e-4 dB leaves that room a hundredfold and lies 24x under the gap of
+# the reference rounded to bfloat16 at this size (2.4e-3 dB or more).
+REF_SINR_DB = 1e-4
+
+
+@pytest.fixture(scope="module")
+def edge_two():
+    """One spawn of 2 gloo ranks: the sharded step at the cell edge, on
+    the inputs given, with the reference flagship on the same inputs."""
+    car = tflagship.default_carrier(EDGE_PRB, 2, EDGE_TBS)
+    gen = torch.Generator().manual_seed(18)
+    tb = torch.randint(0, 2, (EDGE_CARRIERS, EDGE_TBS), generator=gen,
+                       dtype=torch.int8)
+    sigma = float(np.sqrt(car.nfft) * 10 ** (-EDGE_SNR_DB / 20))
+    nz = torch.randn((2, EDGE_CARRIERS, car.slot_samples), generator=gen)
+    noise = torch.complex(nz[0], nz[1]) * (sigma / np.sqrt(2.0))
+    ranks = launch.spawn(2, tentry.carrier_step_check, car, tb, noise,
+                         backend="gloo", device="cpu")
+    rcar = ref_flagship.default_carrier(EDGE_PRB, 2, EDGE_TBS)
+    ok, _, sinr, errors = ref_flagship.loopback_batch(tb, noise, rcar)
+    return {"car": car, "ranks": ranks,
+            "ref": {"ok": ok, "sinr": sinr, "bit_errors": errors}}
+
+
+def test_sharded_cell_edge_step_matches_reference(edge_two):
+    """4 carriers at 68 PRB over 2 ranks: each rank's gathered ok and bit
+    errors equal the reference flagship's, SINR within REF_SINR_DB."""
+    sh = edge_two["car"].sh
+    assert (sh.segments.base_graph, sh.segments.nof_segments,
+            sh.segments.lifting_size) == (2, 2, 224)
+    ref = edge_two["ref"]
+    assert ref["ok"].all() and not ref["bit_errors"].any()
+    for rep in edge_two["ranks"]:
+        assert rep["ok"].tolist() == ref["ok"].tolist()
+        assert rep["bit_errors"].tolist() == ref["bit_errors"].tolist()
+        assert torch.equal(rep["bit_errors_ref"], rep["bit_errors"])
+        np.testing.assert_allclose(rep["sinr"].numpy(),
+                                   ref["sinr"].numpy(), rtol=0,
+                                   atol=REF_SINR_DB)
+        # each rank ran one encode and one decode of its 2 carriers' CBs
+        assert [(c["fn"], c["x"].shape[0]) for c in rep["calls"]] == [
+            ("encode", 4), ("decode", 4)]
 
 
 # ------------------------------------------------------------- mixed slot

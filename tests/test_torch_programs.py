@@ -449,6 +449,31 @@ def test_upper_phy_programs_are_capture_safe(monkeypatch):
         3, 1)
 
 
+def test_sharded_flagship_step_is_capture_safe(monkeypatch):
+    """The carrier-sharded flagship step at the cell edge (68 PRB, QPSK MCS
+    3, LDPC base graph 2) on a one-rank gloo world: after the warm-up its
+    program body reads no device value and copies no host data, and every
+    carrier decodes with no bit wrong on both steps."""
+    from srsran_project_23_5_tpu_torch.models import gnb_flagship
+    from srsran_project_23_5_tpu_torch.parallel import launch
+    from srsran_project_23_5_tpu_torch.parallel import mesh as tmesh
+    car = gnb_flagship.default_carrier(68, 2, 4360)
+    gen = torch.Generator().manual_seed(18)
+    tb = torch.randint(0, 2, (2, car.sh.tbs), generator=gen,
+                       dtype=torch.int8)
+    sigma = float(np.sqrt(car.nfft) * 10 ** (-5.0 / 20))
+    nz = torch.randn((2, 2, car.slot_samples), generator=gen)
+    noise = torch.complex(nz[0], nz[1]) * (sigma / np.sqrt(2.0))
+    with launch.world_of_one("gloo", CPU) as dev, \
+            _guarded(monkeypatch) as hits:
+        step = gnb_flagship.sharded_multi_carrier_step(
+            tmesh.make_mesh(device=dev), car)
+        for _ in range(2):
+            ok, _, errors = step(tb, noise)
+            assert ok.all() and not errors.any()
+    assert hits == []
+
+
 def test_app_programs_are_capture_safe(monkeypatch):
     """The whole loopback app at 52 PRB (gNB slot programs and the UE
     modem's): no program body reads a device value or copies host data;

@@ -3,7 +3,7 @@ kept and no ``record_function`` made while tracing is off; parents,
 request ids and counts while it is on; the in-memory times on the clock of
 ``torch.profiler``'s exported trace; the span trees of a bucketed
 ``UpperPhy`` DL and UL slot, of a captured program and of a scan
-dispatch."""
+dispatch, and of a carrier-sharded step on two spawned gloo ranks."""
 import dataclasses
 import json
 import threading
@@ -12,7 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from srsran_project_23_5_tpu_torch.models import fapi_carrier
+from srsran_project_23_5_tpu_torch.models import fapi_carrier, gnb_flagship
+from srsran_project_23_5_tpu_torch.parallel import launch
+from srsran_project_23_5_tpu_torch.parallel import mesh as tmesh
 from srsran_project_23_5_tpu_torch.phy import pipeline as tpipeline
 from srsran_project_23_5_tpu_torch.phy.upper import upper_phy as tupper_phy
 from srsran_project_23_5_tpu_torch.utils import graphs, tracing
@@ -265,3 +267,50 @@ def test_scan_dispatch_spans(tracer):
     assert [r.name for r in tracer.records()
             if r.parent is None] == ["pipeline.dispatch"] * 2 + [
         "pipeline.fetch"]
+
+
+MESH_CARRIERS = 4
+
+
+def traced_mesh_steps(rank: int, device: torch.device, tb, noise) -> list:
+    """A rank program: two sharded tiny-carrier steps with the tracer on;
+    (name, id, parent, request, counts) of each record kept."""
+    tr = tracing.tracer
+    tr.clear()
+    tr.enabled = True
+    step = gnb_flagship.sharded_multi_carrier_step(
+        tmesh.make_mesh(device=device), gnb_flagship.tiny_carrier(), 2)
+    for _ in range(2):
+        step(tb, noise)
+    tr.enabled = False
+    return [(r.name, r.id, r.parent, r.req, dict(r.counts or {}))
+            for r in tr.records()]
+
+
+def test_mesh_step_spans_on_two_ranks():
+    """On each of two ranks a sharded step is ``mesh.step`` (request: the
+    step's index) over ``mesh.local``, ``mesh.loopback`` and ``mesh.gather``
+    in that order, and ``mesh.gather_bytes`` on the gather is what the rank
+    sends: its 2 carriers' ok (1 byte), SINR (4) and bit errors (4)."""
+    car = gnb_flagship.tiny_carrier()
+    gen = torch.Generator().manual_seed(5)
+    tb = torch.randint(0, 2, (MESH_CARRIERS, car.sh.tbs), generator=gen,
+                       dtype=torch.int8)
+    noise = torch.complex(*torch.randn((2, MESH_CARRIERS, car.slot_samples),
+                                       generator=gen)) * 0.05
+    ranks = launch.spawn(2, traced_mesh_steps, tb, noise, backend="gloo",
+                         device="cpu")
+    for recs in ranks:
+        by_id = {r[1]: r for r in recs}
+        steps = [r for r in recs if r[0] == "mesh.step"]
+        assert [r[3] for r in steps] == [0, 1]
+        for s in steps:
+            kids = sorted((r for r in recs if r[2] == s[1]),
+                          key=lambda r: r[1])
+            assert [k[0] for k in kids] == ["mesh.local", "mesh.loopback",
+                                            "mesh.gather"]
+            assert all(k[3] == s[3] for k in kids)
+            gather = kids[-1]
+            assert gather[4] == {"mesh.gather_bytes": (MESH_CARRIERS // 2)
+                                 * (1 + 4 + 4)}
+            assert s[2] is None and by_id[gather[2]] is s
