@@ -21,9 +21,12 @@ Phases, one line each:
    clear, sweeps, syndrome, bit write) from the kernel's diagnostic
    instance at x136 n_used 35 and on the full graph at Z=384 x8;
 4b. pusch-llr — the PUSCH LLR kernel vs ``pusch_llr_plain`` on the card,
-   bit for bit, at the four PUSCH shapes of the benchmark cells (the mixed
-   slot's two at B=64, the FAPI carrier's A and B at B=1) with their own
-   scrambling signs, each timed beside its bytes bound and the plain chain;
+   bit for bit, and its EVM within rtol 1e-5 of ``evm_plain`` (the largest
+   relative gap printed and in the kernels line), at the five PUSCH shapes
+   of the benchmark cells (the mixed slot's two at B=64, the FAPI carrier's
+   A and B at B=1, the flagship273.mesh4 carrier's QPSK PUSCH at B=128)
+   with their own scrambling signs, each timed beside its bytes bound and
+   the plain chain (LLRs and EVM);
 5. slice   — ``SlotPipeline`` on the 273-PRB flagship carrier, 8 slots per
    batch, depth 2, 20 dB: warmup + submits + drain; every TB CRC ok, mean
    SINR within 1.5 dB of 20, every counted kernel launched in that run;
@@ -517,16 +520,20 @@ def pusch_llr_bound(batch: int, n_re: int, qm: int) -> tuple[float, str]:
 def phase_pusch_llr(dev, card: str) -> dict:
     """The PUSCH LLR kernel against the plain chain at the shapes the
     benchmark cells run (the mixed slot's two PUSCH at B=64, the FAPI
-    carrier's PUSCH A and B at B=1) on symbols around the constellation,
-    with the configs' own scrambling signs: bit-identical, then timed beside
-    its bytes bound and the plain chain."""
+    carrier's PUSCH A and B at B=1, the flagship273.mesh4 carrier's QPSK
+    PUSCH at a card's 128 carriers) on symbols around the constellation,
+    with the configs' own scrambling signs: the LLRs bit-identical, the EVM
+    within rtol 1e-5 of ``evm_plain`` (its largest relative gap kept), then
+    timed beside its bytes bound and the plain chain (LLRs and EVM)."""
     mixed, car = gnb_mixed.default_mixed(), fapi_carrier.default_carrier()
+    edge = gnb_flagship.default_carrier(273, 2, 17416)
     shapes = [("mixed pusch0", mixed.pusch0, 64),
               ("mixed pusch1", mixed.pusch1, 64),
               ("fapi pusch A", car.pusch_a, 1),
-              ("fapi pusch B", car.pusch_b, 1)]
+              ("fapi pusch B", car.pusch_b, 1),
+              ("flagship edge", edge.sh, 128)]
     gen = torch.Generator(device=dev).manual_seed(17)
-    times, max_err = [], 0.0
+    times, max_err, evm_gap = [], 0.0, 0.0
     for label, cfg, batch in shapes:
         qm, layers = cfg.qm, cfg.nof_layers
         n_re = cfg.nof_bits // qm
@@ -537,21 +544,30 @@ def phase_pusch_llr(dev, card: str) -> dict:
             torch.randn(shape, generator=gen, device=dev)) * 0.8
         nv = 10 ** (torch.rand(shape, generator=gen, device=dev) * 3 - 2.5)
         _, sign = sch._scramble_seq(cfg.scrambling_cinit, cfg.nof_bits, dev)
-        got = modulation.pusch_llr(x, nv, sign, qm)
-        want = modulation.pusch_llr_plain(x, nv, sign, qm)
+
+        def plain():
+            return (modulation.pusch_llr_plain(x, nv, sign, qm),
+                    modulation.evm_plain(x.flatten(1), qm))
+
+        got, got_evm = modulation.pusch_llr(x, nv, sign, qm)
+        want, want_evm = plain()
         torch.cuda.synchronize()
         _check(torch.equal(got, want), f"pusch_llr kernel != plain at "
                f"{label} x{batch}")
         max_err = max(max_err, float((got - want).abs().max()))
+        gap = float(((got_evm - want_evm).abs() / want_evm.abs()).max())
+        _check(gap <= 1e-5, f"pusch_llr EVM {gap:.3g} from evm_plain at "
+               f"{label} x{batch}")
+        evm_gap = max(evm_gap, gap)
         times.append(_timed(
             "pusch_llr", f"{label} {qm}-bit L={layers} S={n_re // layers} "
             f"x{batch}", lambda: modulation.pusch_llr(x, nv, sign, qm),
-            lambda: modulation.pusch_llr_plain(x, nv, sign, qm), 50, 5,
-            pusch_llr_bound(batch, n_re, qm)))
-    print(f"[pusch_llr] bit-identical to pusch_llr_plain at "
+            plain, 50, 5, pusch_llr_bound(batch, n_re, qm)))
+    print(f"[pusch_llr] LLRs bit-identical to pusch_llr_plain, EVM within "
+          f"{evm_gap:.3g} of evm_plain at "
           f"{', '.join(f'{l} x{b}' for l, _, b in shapes)}; "
           + "; ".join(_fmt(r) for r in times) + f" on {card}")
-    return {"times": times, "max_err": max_err}
+    return {"times": times, "max_err": max_err, "evm_gap": evm_gap}
 
 
 def _phase_split(label: str, llr: torch.Tensor, bg: int, zc: int,
@@ -2938,8 +2954,9 @@ def main() -> None:
         _kernel_entry("ldpc_encoder", "encoder", paths, enc_err),
         _kernel_entry("ldpc_decoder", "decoder", paths,
                       max(dec_err, u["max_err"])),
-        _kernel_entry("pusch_llr", "pusch_llr", paths, llr["max_err"],
-                      timed=[llr])]}))
+        {**_kernel_entry("pusch_llr", "pusch_llr", paths, llr["max_err"],
+                         timed=[llr]),
+         "evm_max_rel_gap": llr["evm_gap"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,8 +7,9 @@ demaps as PAM; ``modulate_lut`` is the constellation-table mapper.  LLRs
 follow ln(P(0)/P(1)) (positive ⇒ bit 0).
 
 ``pusch_llr`` is the PUSCH LLR stage (demap, layer demap, descramble,
-clip) in one CUDA kernel, ``csrc/pusch_llr.cu``; ``pusch_llr_plain`` is the
-same stage in plain PyTorch, which the wrapper takes only for a CPU tensor.
+clip) and the RMS EVM of each batch row in one CUDA kernel,
+``csrc/pusch_llr.cu``; ``pusch_llr_plain`` and ``evm_plain`` are the same
+stage in plain PyTorch, which the wrapper takes only for a CPU tensor.
 """
 from __future__ import annotations
 
@@ -187,6 +188,20 @@ def pusch_llr_plain(x_hat: torch.Tensor, post_nv: torch.Tensor,
     return torch.clamp(llr * sign, -float(LLR_MAX), float(LLR_MAX))
 
 
+def evm_plain(x_hat: torch.Tensor, qm: int) -> torch.Tensor:
+    """RMS error-vector magnitude of [..., n] symbols against the nearest
+    constellation point → [...] (the JAX package's ``sch.evm_calculate``;
+    the nearest level per axis by ``argmin`` over ``pam_levels(qm)``, which
+    at qm = 2 are its ±1/√2)."""
+    levels = _demap_tables(qm, x_hat.device)[0]
+
+    def nearest(axis_vals: torch.Tensor) -> torch.Tensor:
+        return levels[(axis_vals[..., None] - levels).abs().argmin(dim=-1)]
+
+    hard = torch.complex(nearest(x_hat.real), nearest(x_hat.imag))
+    return ((x_hat - hard).abs() ** 2).mean(dim=-1).sqrt()
+
+
 _QPSK_GAIN = float(np.float32(2.0 * np.sqrt(2.0)))
 
 
@@ -207,9 +222,27 @@ def _stage_shape(x_hat: torch.Tensor, post_nv: torch.Tensor,
     return batch, layers, nsym
 
 
+#: per device, the kernel's per-row tickets (``csrc/pusch_llr.cu``): made
+#: zero once and zero again after every launch, so a captured graph may hold
+#: them; a larger batch adds a larger buffer and keeps the old one
+_TICKETS: dict[torch.device, list[torch.Tensor]] = {}
+
+
+def _tickets(device: torch.device, batch: int) -> torch.Tensor:
+    held = _TICKETS.setdefault(device, [])
+    if not held or held[-1].numel() < batch:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("pusch_llr's first call at this batch size "
+                               "on a device must not be inside a graph "
+                               "capture: warm it up eagerly first")
+        held.append(torch.zeros(max(batch, 1024), dtype=torch.int32,
+                                device=device))
+    return held[-1]
+
+
 def _launch(x_hat: torch.Tensor, post_nv: torch.Tensor, sign: torch.Tensor,
-            qm: int) -> torch.Tensor:
-    """One kernel launch over the batch."""
+            qm: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """One kernel launch over the batch → (LLRs, EVM)."""
     batch, layers, nsym = _stage_shape(x_hat, post_nv, sign, qm)
     if (x_hat.dtype != torch.complex64 or x_hat.is_conj()
             or post_nv.dtype != torch.float32 or sign.dtype != torch.float32):
@@ -223,37 +256,50 @@ def _launch(x_hat: torch.Tensor, post_nv: torch.Tensor, sign: torch.Tensor,
             and sign.is_contiguous()) or sign.data_ptr() % 8:
         raise ValueError("pusch_llr takes contiguous inputs, the sign "
                          "8-byte aligned")
+    dev = x_hat.device
     out = torch.empty((batch, layers * nsym * qm), dtype=torch.float32,
-                      device=x_hat.device)
+                      device=dev)
     if out.numel() == 0:
-        return out
+        # the plain mean over no REs
+        return out, torch.full((batch,), float("nan"), device=dev)
+    evm = torch.empty(batch, dtype=torch.float32, device=dev)
+    lib = kernels.library().lib
+    chunks = lib.pusch_llr_chunks(batch, layers, nsym)
+    partial = torch.empty(batch * chunks, dtype=torch.float32, device=dev)
+    ticket = _tickets(torch.device("cuda", x_hat.get_device()), batch)
     levels = pam_levels(qm)
-    err = kernels.library().lib.pusch_llr(
+    err = lib.pusch_llr(
         x_hat.data_ptr(), post_nv.data_ptr(), sign.data_ptr(),
-        out.data_ptr(), batch, layers, nsym, qm, levels.ctypes.data,
-        _QPSK_GAIN, float(LLR_MAX),
-        torch.cuda.current_stream(x_hat.device).cuda_stream)
+        out.data_ptr(), evm.data_ptr(), partial.data_ptr(), ticket.data_ptr(),
+        batch, layers, nsym, qm, levels.ctypes.data, _QPSK_GAIN,
+        float(LLR_MAX), torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(err, "pusch_llr launch")
-    return out
+    return out, evm
 
 
 def pusch_llr(x_hat: torch.Tensor, post_nv: torch.Tensor, sign: torch.Tensor,
-              qm: int) -> torch.Tensor:
-    """The PUSCH LLR stage (as ``pusch_llr_plain``): the CUDA kernel for a
-    CUDA tensor, bit-identical to the plain chain on the card; the plain
-    chain for a CPU tensor.  ``pusch_llr.launches`` counts kernel launches;
-    the tracer counts ``pusch.llr_kernel`` or ``pusch.llr_plain`` per call."""
+              qm: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The PUSCH LLR stage and the EVM: (``pusch_llr_plain``, ``evm_plain``
+    over each row's L·S symbols).  The CUDA kernel for a CUDA tensor: the
+    LLRs bit-identical to the plain chain on the card, the EVM within the
+    rounding of its sum's order; the plain chain for a CPU tensor.
+    ``pusch_llr.launches`` counts kernel launches; the tracer counts
+    ``pusch.llr_kernel`` and ``pusch.evm_kernel``, or ``pusch.llr_plain`` and
+    ``pusch.evm_plain``, per call."""
     if x_hat.device.type == "cpu":
         _stage_shape(x_hat, post_nv, sign, qm)
         tracer.add("pusch.llr_plain")
-        return pusch_llr_plain(x_hat, post_nv, sign, qm)
+        tracer.add("pusch.evm_plain")
+        return (pusch_llr_plain(x_hat, post_nv, sign, qm),
+                evm_plain(x_hat.flatten(1), qm))
     if x_hat.device.type != "cuda":
         raise ValueError(f"no PUSCH LLR kernel for device {x_hat.device}")
     tracer.add("pusch.llr_kernel")
-    out = _launch(x_hat, post_nv, sign, qm)
+    tracer.add("pusch.evm_kernel")
+    out, evm = _launch(x_hat, post_nv, sign, qm)
     if out.numel():
         pusch_llr.launches += 1
-    return out
+    return out, evm
 
 
 pusch_llr.launches = 0

@@ -452,23 +452,9 @@ class PuschResult:
     csi2_valid: torch.Tensor | None = None
 
 
-@functools.lru_cache(maxsize=None)
-def _evm_levels(qm: int, device: torch.device) -> torch.Tensor:
-    levels = (modulation.pam_levels(qm) if qm > 2
-              else np.array([1, -1], np.float32) / np.sqrt(2.0))
-    return torch.from_numpy(levels.astype(np.float32)).to(device)
-
-
-def evm_calculate(x_hat: torch.Tensor, qm: int) -> torch.Tensor:
-    """RMS error-vector magnitude of [..., n] symbols against the nearest
-    constellation point → [...]."""
-    levels = _evm_levels(qm, x_hat.device)
-
-    def nearest(axis_vals: torch.Tensor) -> torch.Tensor:
-        return levels[(axis_vals[..., None] - levels).abs().argmin(dim=-1)]
-
-    hard = torch.complex(nearest(x_hat.real), nearest(x_hat.imag))
-    return ((x_hat - hard).abs() ** 2).mean(dim=-1).sqrt()
+#: the JAX package's name for the plain EVM (``pusch_demodulate`` takes the
+#: EVM from ``modulation.pusch_llr``)
+evm_calculate = modulation.evm_plain
 
 
 def _data_rows(grid: torch.Tensor, cfg: ShConfig, h_of=None):
@@ -613,13 +599,8 @@ def pusch_demodulate(rx_grid: torch.Tensor, cfg: ShConfig,
     est, x_hat, post_nv, noise_var = _equalize(_to_virtual(rx_grid, cfg),
                                                cfg, tx_pilots)
     _, sign = _scramble_seq(cfg.scrambling_cinit, cfg.nof_bits, rx_grid.device)
-    llr = modulation.pusch_llr(x_hat, post_nv, sign, cfg.qm)     # [B, G]
-    if cfg.nof_layers > 1:
-        evm = evm_calculate(x_hat.flatten(-2), cfg.qm)
-        ta_norm = None
-    else:
-        evm = evm_calculate(x_hat, cfg.qm)
-        ta_norm = est.ta_norm.mean(dim=-1)
+    llr, evm = modulation.pusch_llr(x_hat, post_nv, sign, cfg.qm)  # [B, G]
+    ta_norm = None if cfg.nof_layers > 1 else est.ta_norm.mean(dim=-1)
     if cfg.uci.any:
         sch_llr, ack, csi1, csi2 = ulsch.demultiplex(llr, cfg.uci_maps_key)
     else:

@@ -35,8 +35,9 @@ _SIGNATURES = {
     "ldpc_decode": (_P, ctypes.c_longlong, _I, _P, _P, _I, _P, _P, _I, _I,
                     _I, _I, _I, _I, _I, _I, ctypes.c_float, _P, _P),
     "ldpc_decode_ctas_per_sm": (_I, _I, _I, _P),
-    "pusch_llr": (_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P,
-                  ctypes.c_float, ctypes.c_float, _P),
+    "pusch_llr": (_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I,
+                  _I, _P, ctypes.c_float, ctypes.c_float, _P),
+    "pusch_llr_chunks": (ctypes.c_longlong, _I, _I),
 }
 
 

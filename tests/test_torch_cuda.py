@@ -167,9 +167,18 @@ def _llr_stage_inputs(dev, seed, qm, layers, batch, nsym, sign=None):
 
 _LLR_CASES = ([(qm, layers, batch, 1531) for qm in (2, 4, 6, 8)
                for layers in (1, 2, 4) for batch in (1, 3, 64)]
-              + [(6, 2, 64, 0), (6, 1, 0, 77), (8, 4, 2, 1), (4, 1, 5, 33)]
+              + [(6, 2, 64, 0), (6, 1, 0, 77), (8, 4, 2, 1), (4, 1, 5, 33),
+                 # more rows than the first ticket buffer holds
+                 (4, 1, 1500, 3)]
               + ["mixed_pusch0", "mixed_pusch1", "fapi_pusch_a",
                  "fapi_pusch_b", "flagship_edge"])
+
+
+def _tickets_all_zero() -> bool:
+    """Every per-row ticket of the kernel is back at 0 (read after a
+    synchronise)."""
+    return all(int(t.count_nonzero()) == 0
+               for held in modulation._TICKETS.values() for t in held)
 
 
 @pytest.mark.cuda
@@ -177,9 +186,11 @@ _LLR_CASES = ([(qm, layers, batch, 1531) for qm in (2, 4, 6, 8)
 def test_pusch_llr_kernel_matches_plain(cuda, case):
     """The PUSCH LLR kernel is bit-identical to the plain chain on the card
     (NaN where it gives NaN), at odd S and at the four PUSCH shapes the
-    benchmark cells run, with their own scrambling signs; B = 0 and S = 0
-    give an empty output and launch nothing; each call with REs is one
-    launch."""
+    benchmark cells run, with their own scrambling signs; its EVM is the
+    plain EVM of each row's L·S symbols within rtol 1e-5 (the sum's order);
+    B = 0 and S = 0 give an empty output and launch nothing (S = 0: the
+    plain EVM's NaN); each call with REs is one launch, and leaves every
+    row's ticket at 0."""
     if isinstance(case, str):
         cfg, batch = _cell_pusch(case)
         qm, layers = cfg.qm, cfg.nof_layers
@@ -192,22 +203,63 @@ def test_pusch_llr_kernel_matches_plain(cuda, case):
         x, nv, sign = _llr_stage_inputs(cuda, qm + layers + batch, qm,
                                         layers, batch, nsym)
     before = modulation.pusch_llr.launches
-    got = modulation.pusch_llr(x, nv, sign, qm)
+    got, evm = modulation.pusch_llr(x, nv, sign, qm)
     torch.cuda.synchronize()
-    assert got.shape == (batch, layers * nsym * qm)
+    assert got.shape == (batch, layers * nsym * qm) and evm.shape == (batch,)
     assert modulation.pusch_llr.launches == before + (got.numel() > 0)
+    assert _tickets_all_zero()
     if got.numel():         # the plain chain cannot reshape an empty batch
         torch.testing.assert_close(
             got, modulation.pusch_llr_plain(x, nv, sign, qm), rtol=0, atol=0,
             equal_nan=True)
+    torch.testing.assert_close(evm, modulation.evm_plain(x.flatten(1), qm),
+                               rtol=1e-5, atol=0, equal_nan=True)
+
+
+def _axis_values(qm: int) -> np.ndarray:
+    """Per-axis values for the EVM's nearest point: each level, each
+    midpoint of two neighbouring levels (a tie where the float32 distances
+    come out equal), just beyond the outermost levels, 0 and -0, ±1e17,
+    ±inf and NaN."""
+    lv = np.sort(modulation.pam_levels(qm))
+    mid = ((lv[:-1] + lv[1:]) / np.float32(2)).astype(np.float32)
+    edge = np.array([lv[0] * 1.5, lv[-1] * 1.5, lv[0] - 1e-7, lv[-1] + 1e-7,
+                     0.0, -0.0, 1e17, -1e17, np.inf, -np.inf, np.nan],
+                    np.float32)
+    return np.concatenate([lv, mid, np.nextafter(mid, np.float32(np.inf)),
+                           edge]).astype(np.float32)
 
 
 @pytest.mark.cuda
-def test_pusch_llr_kernel_in_a_graph(cuda):
+@pytest.mark.parametrize("qm", [2, 4, 6, 8])
+def test_pusch_llr_kernel_evm_of_one_re(cuda, qm):
+    """Rows of a single RE make the EVM that RE's error magnitude: the
+    kernel's is bit-identical to ``evm_plain`` for every pair of axis values
+    of ``_axis_values`` (levels, midpoints, beyond the outermost levels,
+    1e17, ±inf, NaN), and so are its LLRs to the plain chain's."""
+    v = _axis_values(qm)
+    re, im = np.meshgrid(v, v, indexing="ij")
+    x = torch.from_numpy((re + 1j * im).astype(np.complex64).reshape(-1, 1)
+                         ).to(cuda)
+    nv = torch.ones(x.shape, device=cuda)
+    sign = torch.ones(qm, device=cuda)
+    got, evm = modulation.pusch_llr(x, nv, sign, qm)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(evm, modulation.evm_plain(x, qm), rtol=0,
+                               atol=0, equal_nan=True)
+    torch.testing.assert_close(got, modulation.pusch_llr_plain(x, nv, sign, qm),
+                               rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,nsym", [(8, 1531), (64, 17952)])
+def test_pusch_llr_kernel_in_a_graph(cuda, batch, nsym):
     """A captured launch replays to the eager call's output on new inputs
-    in the same buffers; the capture counts its one launch; a CPU-side
-    input or a non-contiguous one is refused."""
-    qm, layers, batch, nsym = 6, 2, 8, 1531
+    in the same buffers, the EVM to the same bits in each of three replays
+    (no float atomics; each launch leaves the row tickets at 0), with one RE
+    a thread and (at the mixed slot's pusch0 shape) four; the capture counts
+    its one launch; a CPU-side input or a non-contiguous one is refused."""
+    qm, layers = 6, 2
     x, nv, sign = _llr_stage_inputs(cuda, 5, qm, layers, batch, nsym)
     side = torch.cuda.Stream(cuda)
     side.wait_stream(torch.cuda.current_stream(cuda))
@@ -217,15 +269,22 @@ def test_pusch_llr_kernel_in_a_graph(cuda):
     graph = torch.cuda.CUDAGraph()
     before = modulation.pusch_llr.launches
     with torch.cuda.graph(graph):
-        out = modulation.pusch_llr(x, nv, sign, qm)
+        out, evm = modulation.pusch_llr(x, nv, sign, qm)
     assert modulation.pusch_llr.launches == before + 1
     x2, nv2, _ = _llr_stage_inputs(cuda, 6, qm, layers, batch, nsym)
     x.copy_(x2)
     nv.copy_(nv2)
-    graph.replay()
+    evms = []
+    for _ in range(3):
+        graph.replay()
+        evms.append(evm.clone())
     torch.cuda.synchronize()
-    torch.testing.assert_close(out, modulation.pusch_llr(x2, nv2, sign, qm),
-                               rtol=0, atol=0, equal_nan=True)
+    assert _tickets_all_zero()
+    eager, eager_evm = modulation.pusch_llr(x2, nv2, sign, qm)
+    torch.testing.assert_close(out, eager, rtol=0, atol=0, equal_nan=True)
+    for e in evms:
+        torch.testing.assert_close(e, eager_evm, rtol=0, atol=0,
+                                   equal_nan=True)
     with pytest.raises(ValueError):
         modulation.pusch_llr(x, nv, sign.cpu(), qm)
     with pytest.raises(ValueError):

@@ -149,6 +149,38 @@ def test_pusch_llr_plain_is_the_stage(qm, layers):
     _close(got, np.clip(np.asarray(ref) * sign, -120.0, 120.0), 1e-5)
 
 
+def _evm_old(x_hat, qm):
+    """``sch.evm_calculate`` as the port had it before the kernel took the
+    EVM."""
+    levels = torch.from_numpy(
+        (modulation.pam_levels(qm) if qm > 2
+         else np.array([1, -1], np.float32) / np.sqrt(2.0)).astype(np.float32))
+
+    def nearest(axis_vals):
+        return levels[(axis_vals[..., None] - levels).abs().argmin(dim=-1)]
+
+    hard = torch.complex(nearest(x_hat.real), nearest(x_hat.imag))
+    return ((x_hat - hard).abs() ** 2).mean(dim=-1).sqrt()
+
+
+@pytest.mark.parametrize("layers", [1, 2, 4])
+@pytest.mark.parametrize("qm", [2, 4, 6, 8])
+def test_evm_plain_is_the_stage(qm, layers):
+    """``evm_plain`` is the EVM ``pusch_demodulate`` took before the kernel
+    (the old ``evm_calculate`` over each row's L·S symbols), exactly, and the
+    JAX package's ``evm_calculate`` row by row within 1e-6; ``sch`` keeps
+    the JAX name for it."""
+    rng = np.random.default_rng(80 + 10 * qm + layers)
+    x, _, _ = _llr_stage_inputs(rng, qm, layers, 3, 41)
+    xt = torch.from_numpy(x).flatten(1)
+    got = tmodulation.evm_plain(xt, qm)
+    assert got.shape == (3,) and torch.equal(got, _evm_old(xt, qm))
+    assert tsch.evm_calculate is tmodulation.evm_plain
+    want = [float(sch.evm_calculate(jnp.asarray(row), qm))
+            for row in x.reshape(3, -1)]
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
+
+
 @pytest.fixture
 def traced():
     """The process tracer on, inside one open span; off and empty after."""
@@ -164,14 +196,17 @@ def traced():
 
 
 def test_pusch_llr_takes_the_plain_path_on_the_cpu(traced):
+    """On the CPU ``pusch_llr`` is (``pusch_llr_plain``, ``evm_plain`` over
+    each row's L·S symbols), counted as the plain path, no launch."""
     rng = np.random.default_rng(70)
     before = tmodulation.pusch_llr.launches
     for layers in (1, 2):
         x, nv, sign = _llr_stage_inputs(rng, 6, layers, 2, 17)
         args = tuple(torch.from_numpy(a) for a in (x, nv, sign))
-        assert torch.equal(tmodulation.pusch_llr(*args, 6),
-                           tmodulation.pusch_llr_plain(*args, 6))
-    assert traced.counts == {"pusch.llr_plain": 2}
+        llr, evm = tmodulation.pusch_llr(*args, 6)
+        assert torch.equal(llr, tmodulation.pusch_llr_plain(*args, 6))
+        assert torch.equal(evm, tmodulation.evm_plain(args[0].flatten(1), 6))
+    assert traced.counts == {"pusch.llr_plain": 2, "pusch.evm_plain": 2}
     assert tmodulation.pusch_llr.launches == before
 
 

@@ -221,8 +221,10 @@ def test_upper_phy_ul_slot_spans(tracer):
         # a new-data flag per PUSCH
         assert prep.counts == {"h2d": len(req.pusch_pdus)} and req.pusch_pdus
         body = [r for r in tracer.records() if r.name == program][0]
-        # the PUSCH LLR stage once per PUSCH, on its plain path on the CPU
-        assert body.counts == {"pusch.llr_plain": len(req.pusch_pdus)}
+        # the PUSCH LLR stage and its EVM once per PUSCH, on their plain
+        # path on the CPU
+        assert body.counts == {"pusch.llr_plain": len(req.pusch_pdus),
+                               "pusch.evm_plain": len(req.pusch_pdus)}
         assert all(r.counts is None for r in tracer.records()
                    if r is not prep and r is not body)
 
