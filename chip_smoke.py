@@ -103,22 +103,22 @@ Phases, one line each:
    through ``PrachWindowAssembler``, detected with its delay; the same for
    restricted set A (root 201, N_cs 26);
 16. scan — the 273-PRB mixed slot through ``SlotPipeline``'s scan mode
-   (K = 8 batches per dispatch, one captured CUDA graph) at B = 8 and
-   B = 64: first, on a pipeline whose kernel calls are tapped (a copy of
-   each call's tensors, captured with the graph), every launch of one
-   replay takes and gives, bit for bit, what the same launch of the eager
-   K-batch loop on the same seed takes and gives, and every eager launch
-   equals its plain version; at B = 64 the kernels' shapes there (BG1
-   Z=384 x1088 and x1024 and x448, Z=352 x512) are timed with their
-   bounds.  Then, on an untapped pipeline: capture time and peak device
-   memory; one replay against the eager K-batch loop on the same seed
-   (all_ok equal, sinr_sum within 1e-6 relative, bit-equality reported); a
-   replay with the static noise ×100 must fail; µs/slot over a window of
+   (K = 8 batches per dispatch, one ``utils/graphs.Program``) at B = 8 and
+   B = 64: first, under ``kernel_taps.tapped_kernels`` (a copy of each
+   call's tensors, captured with the graph and copied out after each
+   replay), every launch of one replay takes and gives, bit for bit, what
+   the same launch of the eager K-batch loop on the same seed takes and
+   gives, and every eager launch equals its plain version; at B = 64 the
+   kernels' shapes there (BG1 Z=384 x1088 and x1024 and x448, Z=352 x512)
+   are timed with their bounds.  Then, untapped: capture time and peak
+   device memory; one replay against the eager K-batch loop on the same
+   seed (all_ok equal, sinr_sum within 1e-6 relative, bit-equality
+   reported); a replay with the static noise ×100 must fail; a window of
    several dispatches and one ``fetch_accumulated``, every slot ok, the
-   launches per replay (4K encoder, 2K decoder, 2K pusch_llr, counted by the
-   capture and checked against the kernels the profiler sees the device run
-   in one replay); ``dispatch_latency``; one dispatch under torch.profiler
-   (busy share, device span);
+   launches per replay (4K encoder, 2K decoder, 2K pusch_llr, counted by
+   the capture and checked against the kernels the profiler sees the
+   device run in one replay).  The benchmark's ``mixed273.*`` cells time
+   the scan mode;
 17. flagship-scan — the same for the flagship loopback at B = 8, K = 8
    (K encoder, K decoder and K pusch_llr launches per replay), untimed;
 18. accumulate — ``submit_accumulated`` over 3 eager mixed batches against
@@ -247,6 +247,7 @@ import types
 import numpy as np
 import torch
 
+from ranbench.harness import roofline
 from srsran_project_23_5_tpu_torch import entry, ofh, radio, ru
 from srsran_project_23_5_tpu_torch.apps import gnb as app_gnb
 from srsran_project_23_5_tpu_torch.examples import (mixed_slot_demo,
@@ -310,17 +311,13 @@ def _time_ms(fn, reps: int, queued: bool = False) -> float:
     return start.elapsed_time(end) / reps
 
 
-# published H100 SXM peaks at 700 W
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-DEC_OPS_PER_EDGE_LANE = 12      # float32 ops per edge-lane per sweep
-
-
 def _bound(nbytes: float, ops: float) -> tuple[float, str]:
-    """Least time (ms) the card could take: the larger of bytes over the
-    memory rate and operations over the float32 rate, and which it is."""
-    b, o = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-    return (b, "bytes") if b >= o else (o, "operations")
+    """Least time (ms) the card could take (the benchmark's roofline: the
+    larger of bytes over the memory rate and operations over the float32
+    rate), and which it is."""
+    which = ("bytes" if nbytes / roofline.HBM_BYTES_PER_S
+             >= ops / roofline.FP32_FLOPS else "operations")
+    return roofline.least_seconds(nbytes, ops) * 1e3, which
 
 
 def encoder_bound(bg: int, zc: int, batch: int) -> tuple[float, str]:
@@ -340,7 +337,8 @@ def decoder_bound(llr: torch.Tensor, bg: int, zc: int, **kw
     sweeps = decoder_cuda.sweeps_needed(llr, bg, zc, **kw).cpu()
     batch = llr.shape[0]
     ms, by = _bound(batch * (4 * n * zc + g.nof_msg_blocks * zc + 1),
-                    DEC_OPS_PER_EDGE_LANE * n_edges * zc * int(sweeps.sum()))
+                    roofline.OPS_PER_EDGE_LANE * n_edges * zc
+                    * int(sweeps.sum()))
     return ms, by, sweeps
 
 
@@ -1644,52 +1642,29 @@ def phase_lower(dev, card: str, u: dict) -> dict:
     return {"launches": launches, "times": []}
 
 
-SCAN_K = 8                      # bench.py's K
-SCAN_SHAPES = ((8, 10), (64, 4))  # (B, dispatches of the sustained window)
+SCAN_K = 8                      # the mixed273 cells' K
+SCAN_SHAPES = ((8, 4), (64, 2))  # (B, dispatches of the window)
 
 
-def _replay_busy(pipe, batch, seed: int) -> tuple[str, float]:
-    """One scan dispatch under torch.profiler: device busy share (kernel
-    time over the host wall of the dispatch and its fetch), device ops per
-    dispatch, the LDPC kernels the device ran in the replay (which must be
-    the launches the capture counted) and the device span of the dispatch
-    (CUDA events; the profiler lengthens it).  Returns (text, kernel time
-    per slot in µs)."""
+def _replay_kernels(pipe, batch, seed: int) -> dict:
+    """The counted kernels the device ran in one scan dispatch under
+    torch.profiler, which must be the launches the capture counted."""
     from torch.profiler import ProfilerActivity, profile
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        start.record()
         pipe.submit_scan(batch, seed)
-        end.record()
-        ok, _, n = pipe.fetch_accumulated()
-        wall_us = (time.perf_counter() - t0) * 1e6
+        ok, _, _ = pipe.fetch_accumulated()
     _check(ok, "a slot failed in the profiled dispatch")
     kern = _device_entries(prof)
-    busy_us = sum(e.self_device_time_total for e in kern)
     ran = {kind: sum(e.count for e in kern if tag in e.key)
            for kind, tag in (("encoder", "ldpc_encode_kernel"),
                              ("decoder", "ldpc_decode_kernel"),
                              ("pusch_llr", "pusch_llr_kernel"))}
-    counted = pipe.captured_launches
+    counted = pipe.program.captured_launches
     _check(ran == counted, f"the profiler saw {ran} kernels in one "
            f"replay, the capture counted {counted}")
-    span_us = start.elapsed_time(end) * 1e3
-    top = sorted(kern, key=lambda e: e.self_device_time_total, reverse=True)
-    seen = (f"device busy {busy_us:.0f} us ({100 * busy_us / wall_us:.1f}% "
-            f"of the {wall_us:.0f} us wall), "
-            f"{sum(e.count for e in kern)} device ops per dispatch; top: "
-            + "; ".join(f"{e.key[:48]} "
-                        f"{100 * e.self_device_time_total / busy_us:.1f}%"
-                        for e in top[:6])
-            if busy_us else "the profiler saw no kernel of the graph")
-    return (f"{seen}; counted kernels the device ran in the replay {ran}; "
-            f"device span {span_us:.0f} us "
-            f"({100 * span_us / wall_us:.1f}% of the wall, "
-            f"{span_us / n:.1f} us per slot)", busy_us / n)
+    return ran
 
 
 def _call_shape(rec: dict) -> str:
@@ -1711,15 +1686,18 @@ def _scan_kernels(card: str, label: str, pipe, batch,
     k = pipe.config.scan_batches
     with kernel_taps.tapped_kernels() as sink:
         pipe.warmup_scan(batch)
-        sink.eager.clear()
         noise = pipe.scan_noise(77)
+        # a tapped replay copies its launches' taps into sink.eager
+        sink.eager.clear()
         ok_r, sum_r = (t.clone() for t in pipe.replay_scan())
+        graph = sink.eager[:]
+        sink.eager.clear()
         ok_e, sum_e = pipe.scan_step(batch, noise)
         torch.cuda.synchronize()
-    graph, eager = sink.graph, sink.eager
-    n = kernel_taps.tapped_launches(pipe.captured_launches)
+    eager = sink.eager
+    n = kernel_taps.tapped_launches(pipe.program.captured_launches)
     _check(len(graph) == len(eager) == n, f"{label}: {len(graph)} kernel "
-           f"calls captured, {len(eager)} eager, {n} launches counted")
+           f"calls replayed, {len(eager)} eager, {n} launches counted")
     _check(bool(ok_r) and bool(ok_e) and torch.equal(sum_r, sum_e),
            f"{label}: tapped replay (ok {bool(ok_r)}, sum {float(sum_r)!r}) "
            f"!= eager (ok {bool(ok_e)}, sum {float(sum_e)!r})")
@@ -1766,11 +1744,11 @@ def _scan_kernels(card: str, label: str, pipe, batch,
 
 def _scan_run(dev, card: str, label: str, pipe, batch, per_batch: dict,
               dispatches: int, sinr_tol: float) -> dict:
-    """The scan mode of one pipeline on the card: warmup_scan (eager
-    warmup, capture), one replay against the eager K-batch loop on the
-    same seed, a replay with the static noise ×100, a sustained accumulate
-    window (counts reset just before and read just after), the dispatch
-    latency and the busy share of one dispatch."""
+    """The scan mode of one pipeline on the card: warmup_scan (the
+    program's eager warm-up and capture), one replay against the eager
+    K-batch loop on the same seed, a replay with the static noise ×100, a
+    window of dispatches and one fetch (counts reset just before and read
+    just after), and the kernels the device ran in one profiled dispatch."""
     k, b = pipe.config.scan_batches, pipe.config.slots_per_batch
     snr = pipe.config.snr_db if pipe.config.carrier else 20.0
     torch.cuda.synchronize()
@@ -1778,12 +1756,12 @@ def _scan_run(dev, card: str, label: str, pipe, batch, per_batch: dict,
     base = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
     warm_s, ok0, mean0 = pipe.warmup_scan(batch)
     # above what was allocated before: the eager warmup's peak, and what
-    # the static buffers and the graph's private pool keep reserved
+    # the static buffers and the graph's pool keep reserved
     peak_gib = (torch.cuda.max_memory_allocated() - base[0]) / 2 ** 30
     held_gib = (torch.cuda.memory_reserved() - base[1]) / 2 ** 30
     _check(ok0 and abs(mean0 - snr) < sinr_tol,
            f"{label}: scan warmup ok {ok0}, mean SINR {mean0:.2f} dB")
-    per_replay = pipe.captured_launches
+    per_replay = pipe.program.captured_launches
     want = {kind: n * k for kind, n in per_batch.items()}
     _check(per_replay == want, f"{label}: the graph captured {per_replay} "
            f"launches, expected {want}")
@@ -1802,15 +1780,12 @@ def _scan_run(dev, card: str, label: str, pipe, batch, per_batch: dict,
         n.mul_(100.0)
     loud_ok = bool(pipe.replay_scan()[0])
     _check(not loud_ok, f"{label}: a replay on ×100 noise still passed")
-    # sustained: several dispatches, one fetch
+    # a window: several dispatches, one fetch
     pipe.fetch_accumulated()
     kernel_taps.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     for i in range(dispatches):
         pipe.submit_scan(batch, 1000 + i * k)
     all_ok, mean, nslots = pipe.fetch_accumulated()
-    wall = time.perf_counter() - t0
     launches = kernel_taps.launch_counts()
     _check(all_ok and nslots == dispatches * k * b
            and abs(mean - snr) < sinr_tol,
@@ -1818,31 +1793,28 @@ def _scan_run(dev, card: str, label: str, pipe, batch, per_batch: dict,
     _check(launches == {kd: dispatches * v for kd, v in want.items()},
            f"{label}: window launches {launches}, expected {dispatches} x "
            f"{want}")
-    lat = sorted(pipe.dispatch_latency(batch, 2000 + i) for i in range(5))
-    busy, kernel_us = _replay_busy(pipe, batch, 3000)
-    us_per_slot = wall / nslots * 1e6
+    ran = _replay_kernels(pipe, batch, 3000)
+    pool = pipe.graphs
     print(f"[{label}] B={b} K={k} ({pipe.slots_per_dispatch} slots per "
-          f"dispatch): warmup_scan {warm_s:.2f} s, capture "
-          f"{pipe.capture_seconds:.2f} s, device memory (max_memory_"
+          f"dispatch): warmup_scan {warm_s:.2f} s, {pool.captures} capture "
+          f"in {pool.capture_seconds:.2f} s, device memory (max_memory_"
           f"allocated) {peak_gib:.2f} GiB over the baseline at its peak, "
-          f"{held_gib:.2f} GiB more reserved after; replay vs eager loop on one seed: all_ok equal, sinr_sum "
+          f"{held_gib:.2f} GiB more reserved after; replay vs eager loop on "
+          f"one seed: all_ok equal, sinr_sum "
           f"{'bit-equal' if bit_equal else f'within {rel:.1e} relative'} "
           f"({float(sum_r)!r}); x100 noise replay all_ok {loud_ok}; "
-          f"sustained {dispatches} dispatches, one fetch: "
-          f"{us_per_slot:.1f} us/slot, all {nslots} slots ok, mean UL SINR "
-          f"{mean:.2f} dB, launches {launches} ({per_replay} per replay); "
-          f"dispatch latency (median of 5) {lat[2] * 1e3:.2f} ms; one "
-          f"dispatch profiled: {busy}; kernel time per slot over the "
-          f"sustained us/slot: {100 * kernel_us / us_per_slot:.1f}% on "
-          f"{card}")
+          f"{dispatches} dispatches, one fetch: all {nslots} slots ok, mean "
+          f"UL SINR {mean:.2f} dB, launches {launches} ({per_replay} per "
+          f"replay; the profiler saw {ran} in one), {pool.replays} replays "
+          f"on {card}")
     return {"launches": launches, "times": []}
 
 
 def phase_scan(dev, card: str, cfg=None, shapes=SCAN_SHAPES,
                k: int = SCAN_K) -> list[dict]:
     """The mixed slot's scan mode (``warmup_scan``/``submit_scan``/
-    ``fetch_accumulated``, one CUDA graph per dispatch) at bench.py's B and
-    K."""
+    ``fetch_accumulated``, one CUDA graph per dispatch) at the mixed273
+    cells' B and K."""
     cfg = cfg or gnb_mixed.default_mixed()
     label = f"scan {cfg.nof_prb}-PRB mixed"
     runs = []
@@ -1884,7 +1856,7 @@ def phase_flagship_scan(dev, card: str, cfg=None, b: int = SLICE_BATCH,
     _scan_kernels(card, f"{label} B={b}", pipe(), tb, timed=False)
     torch.cuda.empty_cache()
     return _scan_run(dev, card, label, pipe(), tb,
-                     {"encoder": 1, "decoder": 1, "pusch_llr": 1}, 10, 1.5)
+                     {"encoder": 1, "decoder": 1, "pusch_llr": 1}, 4, 1.5)
 
 
 def phase_accumulate(dev, card: str, cfg=None, b: int = SLICE_BATCH) -> dict:

@@ -32,7 +32,7 @@ import functools
 import numpy as np
 import torch
 
-from ...utils import kernels
+from ...utils import graphs, kernels
 from .graphs import LiftedGraph, lifted_graph
 
 __all__ = ["decode", "decode_plain", "used_blocks", "state_bytes",
@@ -282,6 +282,7 @@ def decode(llr: torch.Tensor, base_graph: int, lifting_size: int,
 
 
 decode.launches = 0
+graphs.KERNELS["decoder"] = decode
 
 
 def phase_split(llr: torch.Tensor, base_graph: int, lifting_size: int,

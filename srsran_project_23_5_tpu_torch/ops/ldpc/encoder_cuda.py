@@ -21,7 +21,7 @@ import functools
 import numpy as np
 import torch
 
-from ...utils import kernels
+from ...utils import graphs, kernels
 from .encoder import _core_p0_shift
 from .encoder import encode as encode_plain
 from .graphs import lifted_graph
@@ -139,3 +139,4 @@ def encode(msg_bits: torch.Tensor, base_graph: int,
 
 
 encode.launches = 0
+graphs.KERNELS["encoder"] = encode

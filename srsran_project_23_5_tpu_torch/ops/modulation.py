@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..ran.constants import LLR_MAX
-from ..utils import kernels
+from ..utils import graphs, kernels
 from ..utils.tracing import tracer
 from .precoding import layer_demap_llr
 
@@ -284,18 +284,15 @@ def pusch_llr(x_hat: torch.Tensor, post_nv: torch.Tensor, sign: torch.Tensor,
     LLRs bit-identical to the plain chain on the card, the EVM within the
     rounding of its sum's order; the plain chain for a CPU tensor.
     ``pusch_llr.launches`` counts kernel launches; the tracer counts
-    ``pusch.llr_kernel`` and ``pusch.evm_kernel``, or ``pusch.llr_plain`` and
-    ``pusch.evm_plain``, per call."""
+    ``pusch.llr_kernel``, or ``pusch.llr_plain``, per call."""
     if x_hat.device.type == "cpu":
         _stage_shape(x_hat, post_nv, sign, qm)
         tracer.add("pusch.llr_plain")
-        tracer.add("pusch.evm_plain")
         return (pusch_llr_plain(x_hat, post_nv, sign, qm),
                 evm_plain(x_hat.flatten(1), qm))
     if x_hat.device.type != "cuda":
         raise ValueError(f"no PUSCH LLR kernel for device {x_hat.device}")
     tracer.add("pusch.llr_kernel")
-    tracer.add("pusch.evm_kernel")
     out, evm = _launch(x_hat, post_nv, sign, qm)
     if out.numel():
         pusch_llr.launches += 1
@@ -303,3 +300,4 @@ def pusch_llr(x_hat: torch.Tensor, post_nv: torch.Tensor, sign: torch.Tensor,
 
 
 pusch_llr.launches = 0
+graphs.KERNELS["pusch_llr"] = pusch_llr

@@ -15,24 +15,28 @@ accumulate mode and the scan mode (only the AOT program store,
   on the device, all(ok) and sum(sinr); ``fetch_accumulated`` is the one
   host read.
 - ``submit_scan`` runs K = ``scan_batches`` batches (K·B slots) in one
-  dispatch and folds its (all_ok, sinr_sum) into the same accumulator.  On
-  CUDA the K-batch step is a ``torch.cuda.CUDAGraph`` captured once by
-  ``warmup_scan`` on static payload, noise and output buffers, and each
-  submit is a noise draw and one replay; on the CPU the same K-batch loop
-  runs eagerly.  A dispatch's noise is drawn from a generator reseeded
-  from its seed, outside the graph, so the result depends only on
-  (payloads, seed) and a replay sees the draws of the eager loop.
+  dispatch and folds its (all_ok, sinr_sum) into the same accumulator.
+  The K-batch step is one ``utils/graphs.Program`` in a ``GraphPool`` of
+  the pipeline's own, made by the first scan call (``warmup_scan``): one
+  CUDA graph replay per dispatch on the card, the eager K-batch loop on
+  the CPU, on the program's static payload and noise buffers.  A
+  dispatch's noise is drawn from a generator reseeded from its seed,
+  outside the graph, and copied into the program's static noise buffers,
+  which the dispatch then passes to the program (a copy onto itself is
+  free), so the result depends only on (payloads, seed) and a replay sees
+  the draws of the eager loop.
 
 A scan dispatch is the span ``pipeline.dispatch`` of ``utils/tracing``
-(its request id the seed) over ``pipeline.payloads``, ``pipeline.noise``,
-``pipeline.launch`` (the replay; the eager loop on the CPU) and
-``pipeline.fold``; the capture is ``graphs.capture``, the one host read
+(its request id the seed) over ``pipeline.noise``, ``pipeline.launch``
+(the program's call: ``graphs.copy_in``, then ``graphs.replay`` or
+``graphs.capture``) and ``pipeline.fold``; the one host read is
 ``pipeline.fetch``.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import math
 import time
 from typing import Callable, NamedTuple
@@ -73,6 +77,19 @@ class PipelineFn(NamedTuple):
 def _tensors(payloads) -> list[torch.Tensor]:
     return (list(payloads.values()) if isinstance(payloads, dict)
             else [payloads])
+
+
+def _scan_step(run: Callable, batches: int, device: torch.device, batch,
+               *noise: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``SlotPipeline.scan_step``: run on batch k of each noise input, for
+    k < batches."""
+    all_ok = torch.ones((), dtype=torch.bool, device=device)
+    sinr_sum = torch.zeros((), dtype=torch.float32, device=device)
+    for k in range(batches):
+        ok, sinr = run(batch, *(n[k] for n in noise))
+        all_ok = all_ok & ok.all()
+        sinr_sum = sinr_sum + sinr.sum()
+    return all_ok, sinr_sum
 
 
 class SlotPipeline:
@@ -124,13 +141,9 @@ class SlotPipeline:
         self.completion_times: list[float] = []
         self._acc: tuple[torch.Tensor, torch.Tensor] | None = None
         self._acc_slots = 0
-        # scan mode: static buffers, the graph and what it launches
-        self._noise: tuple[torch.Tensor, ...] | None = None
-        self._static_payloads = None
-        self._graph: torch.cuda.CUDAGraph | None = None
-        self._graph_out: tuple[torch.Tensor, torch.Tensor] | None = None
-        self.captured_launches = dict.fromkeys(graphs.KERNELS, 0)
-        self.capture_seconds = 0.0
+        # scan mode: the K-batch step, made by the first scan call
+        self.graphs = graphs.GraphPool(self.device)
+        self.program: graphs.Program | None = None
 
     # ------------------------------------------------------------ the step
     def noise(self, batch: int,
@@ -248,107 +261,59 @@ class SlotPipeline:
 
     def scan_noise(self, seed: int) -> tuple[torch.Tensor, ...]:
         """The noise of one dispatch: the model's draw of K·B slots from a
-        generator reseeded from `seed`, copied into the static buffers →
-        one [K, B, ...] tensor per noise input."""
+        generator reseeded from `seed` → one [K, B, ...] tensor per noise
+        input; once the program exists, its static noise buffers, which
+        the draw is copied into."""
         k, b = self.config.scan_batches, self.config.slots_per_batch
         self._scan_generator.manual_seed(seed)
-        draws = self.fn.draw(k * b, self._scan_generator)
-        if self._noise is None:
-            self._noise = tuple(torch.empty((k, b, *d.shape[1:]),
-                                            dtype=d.dtype, device=self.device)
-                                for d in draws)
-        for dst, d in zip(self._noise, draws):
-            dst.copy_(d.reshape(dst.shape))
-        return self._noise
+        draws = tuple(d.reshape(k, b, *d.shape[1:])
+                      for d in self.fn.draw(k * b, self._scan_generator))
+        if self.program is None:
+            return draws
+        static = self.program.inputs[1:]
+        for dst, d in zip(static, draws):
+            dst.copy_(d)
+        return static
 
     def scan_step(self, batch, noise: tuple[torch.Tensor, ...]
                   ) -> tuple[torch.Tensor, torch.Tensor]:
         """The K-batch step, eagerly: batch k runs on noise[i][k] →
         (all_ok, sinr_sum) over the K·B slots, on the device."""
-        all_ok = torch.ones((), dtype=torch.bool, device=self.device)
-        sinr_sum = torch.zeros((), dtype=torch.float32, device=self.device)
-        for k in range(self.config.scan_batches):
-            ok, sinr = self.fn.run(batch, *(n[k] for n in noise))
-            all_ok = all_ok & ok.all()
-            sinr_sum = sinr_sum + sinr.sum()
-        return all_ok, sinr_sum
+        return _scan_step(self.fn.run, self.config.scan_batches, self.device,
+                          batch, *noise)
 
-    def _set_payloads(self, batch) -> None:
-        """Copy the payloads into the static buffers, always: a tensor
-        changed in place and submitted again is seen.  The CPU loop reads
-        the same buffers, so the CPU tests reach this logic."""
+    def replay_scan(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The program on its static buffers as they stand → its
+        (all_ok, sinr_sum) outputs (on the card the graph's, valid until
+        the next replay)."""
+        if self.program is None:
+            raise RuntimeError("warmup_scan makes the scan program first")
+        return self.program(*self.program.inputs)
+
+    def _dispatch(self, batch, seed: int) -> tuple[torch.Tensor,
+                                                   torch.Tensor]:
+        """One K·B-slot dispatch through the program (made and, on the
+        card, captured at the first call)."""
         self._check_device(batch)
         got = _tensors(batch)[0].shape[0]
         if got != self.config.slots_per_batch:
             raise ValueError(f"scan payloads hold {got} slots, the "
                              f"pipeline {self.config.slots_per_batch}")
-        if self._static_payloads is None:
-            self._static_payloads = (
-                {k: v.clone() for k, v in batch.items()}
-                if isinstance(batch, dict) else batch.clone())
-            return
-        for dst, src in zip(_tensors(self._static_payloads),
-                            _tensors(batch)):
-            dst.copy_(src)
-
-    def replay_scan(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """Replay the captured K-batch graph on the static buffers as they
-        stand → its static (all_ok, sinr_sum) outputs; the launch counts
-        of the kernel wrappers grow by what the graph captured."""
-        if self._graph is None:
-            raise RuntimeError("warmup_scan captures the graph first")
-        self._graph.replay()
-        graphs.add_launches(self.captured_launches)
-        return self._graph_out
-
-    def _dispatch(self, batch, seed: int) -> tuple[torch.Tensor,
-                                                   torch.Tensor]:
-        """One K·B-slot dispatch on the static buffers: the graph on CUDA,
-        the loop on the CPU."""
-        with tracer.span("pipeline.payloads", "pipeline"):
-            self._set_payloads(batch)
         with tracer.span("pipeline.noise", "pipeline"):
             noise = self.scan_noise(seed)
         with tracer.span("pipeline.launch", "pipeline"):
-            if self.device.type == "cuda":
-                return self.replay_scan()
-            return self.scan_step(self._static_payloads, noise)
-
-    def _capture(self) -> None:
-        """Eager passes on a side stream (kernel builds, cached device
-        tables, cuFFT plans, cuBLAS workspaces), then the capture of the
-        K-batch step on the static buffers.  A capture that fails raises."""
-        noise = self._noise
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            self.scan_step(self._static_payloads, noise)
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        before = graphs.launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        try:
-            with torch.cuda.graph(graph, stream=side):
-                out = self.scan_step(self._static_payloads, noise)
-        finally:
-            # capture launches nothing: the counts grow on each replay
-            after = graphs.launch_counts()
-            graphs.set_launch_counts(before)
-        self.capture_seconds = time.perf_counter() - t0
-        self.captured_launches = {k: after[k] - before[k]
-                                  for k in graphs.KERNELS}
-        self._graph, self._graph_out = graph, out
+            if self.program is None:
+                # the program holds the model's run, not the pipeline
+                self.program = self.graphs.program(
+                    functools.partial(_scan_step, self.fn.run,
+                                      self.config.scan_batches, self.device))
+            return self.program(batch, *noise)
 
     def warmup_scan(self, batch) -> tuple[float, bool, float]:
-        """Build and verify the scan step (on CUDA: eager warmup and the
-        capture of the graph) and run it once with seed 0; returns
-        (seconds, all_ok, mean_sinr_db)."""
+        """Make the scan program (on CUDA: its eager warm-up and capture)
+        and run it once with seed 0; returns (seconds, all_ok,
+        mean_sinr_db)."""
         t0 = time.perf_counter()
-        if self.device.type == "cuda":
-            self._set_payloads(batch)
-            self.scan_noise(0)
-            with tracer.span("graphs.capture", "graphs"):
-                self._capture()
         ok, ssum = self._dispatch(batch, 0)
         ok, ssum = bool(ok), float(ssum)
         return time.perf_counter() - t0, ok, ssum / self.slots_per_dispatch

@@ -10,7 +10,9 @@ tensor changed in place is seen) and then:
   cuFFT plans, cuBLAS workspaces), captures it into one
   ``torch.cuda.CUDAGraph`` and replays it; every later call is one replay.
   A capture that fails raises: nothing falls back to eager;
-- on the CPU, the same function runs eagerly on the same static buffers.
+- on the CPU, the same function runs eagerly on the same static buffers,
+  the first call counted as the pool's capture, each later one as a
+  replay.
 
 Everything the function reads that changes from call to call must be one
 of its input tensors: a Python value it reads is fixed at capture.
@@ -26,11 +28,12 @@ the pool is shared safely only because an output is valid until the next
 replay of ANY program of the pool: a caller consumes each output, or
 copies it out, before it calls the next program.
 
-The kernel wrappers of ``KERNELS`` count launches in Python
-(``<wrapper>.launches``); a replay launches no Python, so each replay adds
-the launches its capture saw (``captured_launches``, by kernel name), as
-``phy/pipeline.py`` does for its scan graph.  The eager warm-up's launches
-are real launches and stay counted.
+The kernel wrappers count launches in Python (``<wrapper>.launches``)
+and register themselves in ``KERNELS`` where they are defined; a replay
+launches no Python, so each replay adds the launches its capture saw
+(``captured_launches``, by kernel name, over the wrappers registered at
+capture).  The eager warm-up's launches are real launches and stay
+counted.
 """
 from __future__ import annotations
 
@@ -39,15 +42,12 @@ from typing import Callable
 
 import torch
 
-from ..ops import modulation
-from ..ops.ldpc import decoder_cuda, encoder_cuda
 from .device import resolve as resolve_device
 from .tracing import tracer
 
-#: the kernel wrappers whose ``launches`` count a replay adds to, by name
-KERNELS: dict[str, Callable] = {"encoder": encoder_cuda.encode,
-                                "decoder": decoder_cuda.decode,
-                                "pusch_llr": modulation.pusch_llr}
+#: the kernel wrappers whose ``launches`` count a replay adds to, by name;
+#: each wrapper's module adds it
+KERNELS: dict[str, Callable] = {}
 
 
 def _flatten(tree, leaves: list) -> object:
@@ -81,13 +81,13 @@ def set_launch_counts(counts: dict[str, int] | None = None) -> None:
     """Set every wrapper's launch count to ``counts[name]`` (0 without
     `counts`)."""
     for name, fn in KERNELS.items():
-        fn.launches = counts[name] if counts else 0
+        fn.launches = counts.get(name, 0) if counts else 0
 
 
 def add_launches(counts: dict[str, int]) -> None:
     """Add what a replay launched (``counts[name]`` per kernel)."""
-    for name, fn in KERNELS.items():
-        fn.launches += counts[name]
+    for name, n in counts.items():
+        KERNELS[name].launches += n
 
 
 class GraphPool:
@@ -154,6 +154,8 @@ class Program:
         with tracer.span("graphs.capture" if capture else "graphs.replay",
                          "graphs"):
             if not cuda:
+                self.pool.captures += capture
+                self.pool.replays += not capture
                 return self.fn(*self.inputs)
             if capture:
                 self._capture()
@@ -204,7 +206,8 @@ class Program:
             # capture launches nothing: the counts grow on each replay
             after = launch_counts()
             set_launch_counts(before)
-        self.captured_launches = {k: after[k] - before[k] for k in KERNELS}
+        self.captured_launches = {k: n - before.get(k, 0)
+                                  for k, n in after.items()}
         self.graph, self.out = graph, out
         self.pool.captures += 1
         self.pool.capture_seconds += time.perf_counter() - t0

@@ -5,9 +5,11 @@ launch against its plain version.
 one caller of both wrappers on the slot paths) and ``slot_programs`` (the
 upper PHY's grouped PUSCH decode) for stand-ins that keep a copy of each
 call's tensors, and ``mismatches`` holds each against the plain version.
-A captured program (``utils/graphs.py``) launches no Python when it
-replays: the copies its capture recorded are refreshed by each replay and
-copied out right after it, so every launch of the block is in the sink.
+A captured program (``utils/graphs.py``: the upper PHY's slot programs,
+the UE modem, the mesh step, ``SlotPipeline``'s scan step) launches no
+Python when it replays: the copies its capture recorded are refreshed by
+each replay and copied out right after it, so every launch of the block is
+in ``sink.eager``.
 ``launch_counts`` reads the counters of every counted kernel wrapper
 (``graphs.KERNELS``: the two LDPC kernels, which are tapped, and the
 PUSCH LLR stage, which is not), which count kernel launches only (a CPU
@@ -58,10 +60,11 @@ def _copy(call: dict) -> dict:
 
 @contextlib.contextmanager
 def tapped_kernels():
-    """Every LDPC kernel call inside the block is recorded in the yielded
-    sink: {"fn", "x", "args", "kw", "out"} per call, in ``sink.eager`` for
-    a launch (eager, or of a replay of a program captured inside the
-    block), in ``sink.graph`` for a call made while a graph is captured."""
+    """Every LDPC kernel launch inside the block is recorded in the yielded
+    sink's ``sink.eager``: {"fn", "x", "args", "kw", "out"} per launch,
+    eager or of a replay of a program captured inside the block (a call
+    made while a graph is captured is kept in ``sink.graph``, for the
+    replays to copy out)."""
     sink = types.SimpleNamespace(graph=[], eager=[])
     saved = sch.encoder_cuda, sch.decoder_cuda, slot_programs.decoder_cuda
     capture, replay = graphs.Program._capture, graphs.Program._replay

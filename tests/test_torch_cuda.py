@@ -510,8 +510,9 @@ def test_mixed_scan_replay_equals_eager(cuda):
     pay = gnb_mixed.make_payloads(cfg, np.random.default_rng(31), b, "cuda")
     _, ok, mean = pipe.warmup_scan(pay)
     assert ok and abs(mean - 20.0) < 1.0
-    assert pipe.captured_launches == {"encoder": 4 * k, "decoder": 2 * k,
-                                      "pusch_llr": 2 * k}
+    assert pipe.program.captured_launches == {
+        "encoder": 4 * k, "decoder": 2 * k, "pusch_llr": 2 * k}
+    assert (pipe.graphs.captures, pipe.graphs.replays) == (1, 1)
     replay, eager = _replay_vs_eager(pipe, pay, 5)
     assert replay[0] and replay[0] == eager[0]
     assert abs(replay[1] - eager[1]) <= 1e-6 * abs(eager[1])
@@ -522,6 +523,9 @@ def test_mixed_scan_replay_equals_eager(cuda):
     assert all_ok and n == 2 * k * b and abs(mean - 20.0) < 1.0
     assert encoder_cuda.encode.launches == enc0 + 2 * 4 * k
     assert decoder_cuda.decode.launches == dec0 + 2 * 2 * k
+    # the noise is drawn into the buffers the graph reads
+    assert [t.data_ptr() for t in pipe.scan_noise(5)] == [
+        t.data_ptr() for t in pipe.program.inputs[1:]]
     for n in pipe.scan_noise(5):
         n.mul_(100.0)
     assert not bool(pipe.replay_scan()[0])
@@ -540,8 +544,8 @@ def test_flagship_scan_capture(cuda):
                        dtype=torch.int8)
     _, ok, mean = pipe.warmup_scan(tb)
     assert ok and abs(mean - 20.0) < 1.5
-    assert pipe.captured_launches == {"encoder": k, "decoder": k,
-                                      "pusch_llr": k}
+    assert pipe.program.captured_launches == {"encoder": k, "decoder": k,
+                                              "pusch_llr": k}
     replay, eager = _replay_vs_eager(pipe, tb, 3)
     assert replay[0] and replay[0] == eager[0]
     assert abs(replay[1] - eager[1]) <= 1e-6 * abs(eager[1])

@@ -25,6 +25,7 @@ from srsran_project_23_5_tpu_torch import convert
 from srsran_project_23_5_tpu_torch.models import gnb_flagship as tflagship
 from srsran_project_23_5_tpu_torch.models import gnb_mixed as tmixed
 from srsran_project_23_5_tpu_torch.phy import pipeline as tpipeline
+from srsran_project_23_5_tpu_torch.utils import graphs
 from test_torch_mixed import _jax_noise
 
 torch.set_num_threads(1)
@@ -242,6 +243,45 @@ def test_scan_counts_and_latency():
     _, _, n = pipe.fetch_accumulated()
     assert n == 5 * 4 * 3 + 3
     assert pipe.dispatch_latency(pay, 9) > 0.0
+
+
+def test_scan_is_one_program():
+    """The scan step is one ``utils/graphs.Program`` in the pipeline's own
+    pool: ``warmup_scan`` makes it (the pool counts one capture), each
+    ``submit_scan`` is one replay of it."""
+    pipe = _toy_pipe()
+    pay = _toy_payloads(4)
+    assert pipe.program is None
+    pipe.warmup_scan(pay)
+    prog = pipe.program
+    assert [v for v in vars(pipe).values()
+            if isinstance(v, graphs.Program)] == [prog]
+    assert prog.pool is pipe.graphs
+    assert (pipe.graphs.captures, pipe.graphs.replays) == (1, 0)
+    for seed in range(3):
+        pipe.submit_scan(pay, seed)
+        assert pipe.program is prog
+        assert (pipe.graphs.captures, pipe.graphs.replays) == (1, seed + 1)
+
+
+def test_scan_noise_is_the_program_input():
+    """Once the program exists, ``scan_noise(seed)`` draws the dispatch's
+    noise into the program's static noise buffers and returns them (the
+    same storage), so a dispatch passes the program its own buffers."""
+    pipe = _toy_pipe()
+    pay = _toy_payloads(4)
+    pipe.warmup_scan(pay)
+    static = pipe.program.inputs[1:]
+    for seed in (5, 6):
+        got = pipe.scan_noise(seed)
+        assert len(got) == len(static) == 1
+        assert [t.data_ptr() for t in got] == [t.data_ptr() for t in static]
+        (want,) = _TOY.draw(pipe.slots_per_dispatch,
+                            torch.Generator().manual_seed(seed))
+        assert torch.equal(got[0], want.reshape(got[0].shape))
+    pipe.submit_scan(pay, 7)
+    assert [t.data_ptr() for t in pipe.program.inputs[1:]] == [
+        t.data_ptr() for t in static]
 
 
 def test_flagship_scan_cpu():

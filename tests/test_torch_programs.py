@@ -70,11 +70,32 @@ def test_program_copies_inputs_every_call():
     assert prog.inputs[0] is static and torch.equal(static, x)
     assert float(prog.eager(torch.ones(2), (two, two))["s"]) == 6.0
     assert pool.cached("k", lambda: prog.fn) is pool.cached("k", None)
-    assert pool.captures == pool.replays == pool.reserved_bytes() == 0
+    # the CPU's first call stands for the capture, the second for a replay
+    assert pool.captures == pool.replays == 1
+    assert pool.reserved_bytes() == 0
     with pytest.raises(ValueError, match="shapes"):
         prog(torch.ones(3), (two, three))
     with pytest.raises(TypeError, match="tensor"):
         prog(x, (2.0, three))
+
+
+def test_graphs_imports_no_ops():
+    """The capture layer depends on nothing it captures: importing
+    ``utils.graphs`` in a fresh interpreter loads no module of ``ops``
+    (each kernel wrapper registers itself in ``graphs.KERNELS``)."""
+    code = ("import sys\n"
+            "from srsran_project_23_5_tpu_torch.utils import graphs\n"
+            "ops = sorted(m for m in sys.modules\n"
+            "             if m.startswith('srsran_project_23_5_tpu_torch.ops'))\n"
+            "assert not ops and not graphs.KERNELS, (ops, graphs.KERNELS)\n"
+            "from srsran_project_23_5_tpu_torch.phy.upper import sch\n"
+            "assert sorted(graphs.KERNELS) == ['decoder', 'encoder', "
+            "'pusch_llr']\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
 
 
 # ------------------------------------------------------------ UL programs

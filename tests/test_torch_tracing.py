@@ -221,10 +221,9 @@ def test_upper_phy_ul_slot_spans(tracer):
         # a new-data flag per PUSCH
         assert prep.counts == {"h2d": len(req.pusch_pdus)} and req.pusch_pdus
         body = [r for r in tracer.records() if r.name == program][0]
-        # the PUSCH LLR stage and its EVM once per PUSCH, on their plain
+        # the PUSCH LLR stage (with its EVM) once per PUSCH, on its plain
         # path on the CPU
-        assert body.counts == {"pusch.llr_plain": len(req.pusch_pdus),
-                               "pusch.evm_plain": len(req.pusch_pdus)}
+        assert body.counts == {"pusch.llr_plain": len(req.pusch_pdus)}
         assert all(r.counts is None for r in tracer.records()
                    if r is not prep and r is not body)
 
@@ -260,8 +259,11 @@ def test_scan_dispatch_spans(tracer):
     assert ok and n == 12
     trees = _tree(tracer.records(), "pipeline.dispatch")
     assert [kids for _, kids in trees] == [[
-        "pipeline.payloads", "pipeline.noise", "pipeline.launch",
-        "pipeline.fold"]] * 2
+        "pipeline.noise", "pipeline.launch", "pipeline.fold"]] * 2
+    # the launch is the scan program's call: its copy-in, then its replay
+    assert [kids for _, kids in _tree(tracer.records(),
+                                      "pipeline.launch")] == [[
+        "graphs.copy_in", "graphs.replay"]] * 2
     assert [rec.req for rec, _ in trees] == [11, 2**40 + 3]
     for rec, _ in trees:
         assert {r.req for r in tracer.records() if r.parent == rec.id} == {
