@@ -27,22 +27,29 @@ Phases, one line each:
    A and B at B=1, the flagship273.mesh4 carrier's QPSK PUSCH at B=128)
    with their own scrambling signs, each timed beside its bytes bound and
    the plain chain (LLRs and EVM);
+4c. channel-mix — the channel mix kernel vs ``channel_mix_plain`` on the
+   card within 1e-6 of the largest output magnitude, at the mixed slot's
+   two mixes (DL: the 2×2 port mix; UL: the port mix plus the 1-port
+   PUSCH and PUCCH/PRACH streams) of the [B, 2, 14, 3276] grid at the
+   scan cells' B = 8 and B = 64, on the slot's own channels, each timed
+   beside its bytes bound and the plain expression (einsum and adds);
 5. slice   — ``SlotPipeline`` on the 273-PRB flagship carrier, 8 slots per
    batch, depth 2, 20 dB: warmup + submits + drain; every TB CRC ok, mean
-   SINR within 1.5 dB of 20, every counted kernel launched in that run;
-   decoded bits equal the sent bits; a small slot on the card agrees with
-   the same slot through the plain versions on the CPU; kernel and plain
-   times at the flagship shapes;
+   SINR within 1.5 dB of 20, every counted kernel but the channel mix
+   launched in that run and the channel mix not at all; decoded bits equal
+   the sent bits; a small slot on the card agrees with the same slot
+   through the plain versions on the CPU; kernel and plain times at the
+   flagship shapes;
 6. profile — torch.profiler over two flagship batches: device busy share,
    the top kernels, each LDPC kernel's device time per launch;
 7. mixed   — the 273-PRB mixed slot (2×PDSCH with 2-layer MIMO, PDCCH, SSB,
    CSI-RS, 2×PUSCH, PUCCH F1, PRACH) through ``SlotPipeline`` with
    ``gnb_mixed.batch_fn_for_pipeline``, 8 slots per batch, depth 2, 20 dB:
    warmup + submits + drain; every slot ok, mean UL SINR within 1.0 dB of
-   20, 4 encoder, 2 decoder and 2 pusch_llr launches per batch; how many
-   slots passed each check; the wall time of each stage of a batch; kernel
-   and plain times at the mixed shapes, and the decoder's phase split on
-   the mixed slot's own LLRs;
+   20, 4 encoder, 2 decoder, 2 pusch_llr and 2 channel_mix launches per
+   batch; how many slots passed each check; the wall time of each stage
+   of a batch; kernel and plain times at the mixed shapes, and the
+   decoder's phase split on the mixed slot's own LLRs;
 8. mixed-cpu — a ``tiny_mixed`` batch of 2 on the card against the same
    payloads and noise through the plain versions on the CPU: every verdict
    and the decoded bits equal, SINRs within 0.1 dB;
@@ -79,16 +86,18 @@ Phases, one line each:
    ``SlotPipeline``, 8 slots per batch: the TDL channel (``tdl_channel``
    at 30 dB; its verdicts at 20 dB are printed, not gated),
    the UE-side PDSCH decode (``ue_decode_dl``: 4 decoder and 4 pusch_llr
-   launches per batch; its two PDSCH decode shapes, BG1 Z=384 x128 and
-   x56 n_used 34, held bit-exact against ``decode_plain`` first and
-   timed) and the grid PRACH; every slot ok under the JAX slot's gates,
+   launches per batch, 2 channel_mix launches a batch in each option;
+   its two PDSCH decode shapes, BG1 Z=384 x128 and x56 n_used 34, held
+   bit-exact against ``decode_plain`` first and timed) and the grid
+   PRACH; every slot ok under the JAX slot's gates,
    µs/slot each;
 13. harq — ``harq_retx_batch`` at 273 PRB, 8 slots: a sweep of snr1 over
    11-14 dB, the first point where every first and retx verdict fails and
    every combination passes for both UEs, driven once with the counts
-   reset (8 encoder, 6 decoder and 4 pusch_llr launches); the full-graph
-   decodes of the combined LLRs (BG1 Z=384 x136, Z=352 x64) bit-exact against
-   ``decode_plain``, timed, with CTAs per SM, waves and the phase split;
+   reset (8 encoder, 6 decoder, 4 pusch_llr and 4 channel_mix launches);
+   the full-graph decodes of the combined LLRs (BG1 Z=384 x136, Z=352
+   x64) bit-exact against ``decode_plain``, timed, with CTAs per SM,
+   waves and the phase split;
 14. receivers — on the flat mixed slot's UE grid (port 0):
    ``pdcch_blind_receive`` for each RNTI over CCEs {0, 4, 8, 12} at AL4
    (only the true candidate passes, with the sent DCI) and
@@ -115,12 +124,13 @@ Phases, one line each:
    seed (all_ok equal, sinr_sum within 1e-6 relative, bit-equality
    reported); a replay with the static noise ×100 must fail; a window of
    several dispatches and one ``fetch_accumulated``, every slot ok, the
-   launches per replay (4K encoder, 2K decoder, 2K pusch_llr, counted by
-   the capture and checked against the kernels the profiler sees the
-   device run in one replay).  The benchmark's ``mixed273.*`` cells time
-   the scan mode;
+   launches per replay (4K encoder, 2K decoder, 2K pusch_llr, 2K
+   channel_mix, counted by the capture and checked against the kernels the
+   profiler sees the device run in one replay).  The benchmark's
+   ``mixed273.*`` cells time the scan mode;
 17. flagship-scan — the same for the flagship loopback at B = 8, K = 8
-   (K encoder, K decoder and K pusch_llr launches per replay), untimed;
+   (K encoder, K decoder and K pusch_llr launches per replay, no
+   channel_mix), untimed;
 18. accumulate — ``submit_accumulated`` over 3 eager mixed batches against
    the reduction of ``drain()`` of a pipeline with the same seed;
 19. ops — the ops the port gained with the scan mode (bit packing, host
@@ -136,7 +146,8 @@ Phases, one line each:
    DU-high, MAC and scheduler, FAPI, ``UpperPhy``, OFDM, AWGN and the UE.
    The UE must reach RRC ACTIVE with every packet delivered both ways,
    one RAR, at least 3 DL decodes, PRACH, PUCCH ACK and F2 CSI sent, a
-   CQI > 0 at the scheduler, and every counted kernel launched.  Every
+   CQI > 0 at the scheduler, and every counted kernel but the channel
+   mix launched.  Every
    LDPC launch the run made (gNB PDSCH encode and PUSCH decode, UE PUSCH
    encode and PDSCH decode; tapped in ``sch`` and ``slot_programs``) is
    bit-exact against its plain version, and each distinct shape is timed
@@ -214,7 +225,8 @@ Phases, one line each:
    seconds and peak reserved MiB per rank;
 25. examples — the four examples through their ``main`` with no
    ``--device`` (the card is their default): ``mixed_slot_demo --prb
-   273`` (every channel ok; 4 encoder, 2 decoder, 2 pusch_llr launches; a
+   273`` (every channel ok; 4 encoder, 2 decoder, 2 pusch_llr and 2
+   channel_mix launches; a
    warm second run, checked alike), ``phy_loopback`` at its defaults (52
    PRB, 16QAM, R=0.5, 15 dB) and at ``--prb 273 --qm 6 --rate 0.65
    --snr-db 20`` (8 slots each, every CRC ok, mean SINR within 1.5 dB,
@@ -258,7 +270,7 @@ from srsran_project_23_5_tpu_torch.fapi import scf, validators
 from srsran_project_23_5_tpu_torch.models import (fapi_carrier, gnb_flagship,
                                                   gnb_mixed)
 from srsran_project_23_5_tpu_torch.ofh import compression as bfp
-from srsran_project_23_5_tpu_torch.ops import modulation
+from srsran_project_23_5_tpu_torch.ops import channel_mix, modulation
 from srsran_project_23_5_tpu_torch.ops import prach as prach_ops
 from srsran_project_23_5_tpu_torch.ops.ldpc import (decoder_cuda,
                                                     encoder_cuda, graphs,
@@ -401,12 +413,13 @@ def phase_build(card: str) -> dict:
     lib = kernels.library()
     wall = time.perf_counter() - t0
     # ptxas -v: registers of each kernel (decoder instances by row degree,
-    # pusch_llr's by bits per symbol)
+    # pusch_llr's by bits per symbol, channel_mix's by streams and width)
     regs = []
     for name, n in re.findall(r"Compiling entry function '(\w+)'.*?Used "
                               r"(\d+) registers", lib.build_log, flags=re.S):
         degree = re.search(r"ILi(\d+)E", name)
         label = ("pusch_llr" if "pusch_llr" in name else
+                 "channel_mix" if "channel_mix" in name else
                  "encoder" if "encode" in name else "decoder")
         regs.append(f"{label}{'<%s>' % degree.group(1) if degree else ''} "
                     f"{n} regs")
@@ -568,6 +581,65 @@ def phase_pusch_llr(dev, card: str) -> dict:
     return {"times": times, "max_err": max_err, "evm_gap": evm_gap}
 
 
+def channel_mix_bound(batch: int, length: int, streams: int
+                      ) -> tuple[float, str]:
+    """The two-port signal (16 B an element) and each single-port stream
+    (8 B) in once, the two-port result (16 B) out; the arithmetic (8 or 16
+    float32 operations an element and port per product) is far below the
+    float32 rate."""
+    return _bound(batch * length * (32 + 8 * streams), 0.0)
+
+
+def phase_channel_mix(dev, card: str) -> dict:
+    """The channel mix kernel against the plain expression at the mixed
+    slot's grid, the DL mix (no stream) and the UL mix (two streams), at
+    the scan cells' B = 8 and B = 64 on the slot's own channels: within
+    1e-6 of the largest output magnitude, then timed beside its bytes bound
+    and the plain expression."""
+    cfg = gnb_mixed.default_mixed()
+    h_ul, h_dl, h1_ul, h2_ul = gnb_mixed._channels(dev)
+    trail = (14, cfg.nsc)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    times, max_err, max_rel = [], 0.0, 0.0
+    for batch in (SLICE_BATCH, 64):
+        def draw(*shape):
+            return torch.randn(shape, generator=gen, device=dev,
+                               dtype=torch.complex64)
+        g, x1, x2 = draw(batch, 2, *trail), draw(batch, *trail), draw(
+            batch, *trail)
+        for link, h, vecs, xs in (("DL", h_dl, (), ()),
+                                  ("UL", h_ul, (h1_ul, h2_ul), (x1, x2))):
+            def kernel(h=h, vecs=vecs, xs=xs):
+                return channel_mix.channel_mix(h, g, vecs, xs)
+
+            def plain(h=h, vecs=vecs, xs=xs):
+                return channel_mix.channel_mix_plain(h, g, vecs, xs)
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            rel = err / float(want.abs().max())
+            _check(got.is_contiguous() and rel <= 1e-6,
+                   f"channel_mix kernel {rel:.3g} of max|plain| from plain "
+                   f"at {link} x{batch}")
+            max_err, max_rel = max(max_err, err), max(max_rel, rel)
+            times.append(_timed(
+                "channel_mix", f"{link} {len(xs)} streams "
+                f"[{batch}, 2, 14, {cfg.nsc}]", kernel, plain, 50, 5,
+                channel_mix_bound(batch, 14 * cfg.nsc, len(xs))))
+        del g, x1, x2
+    print(f"[channel_mix] within {max_rel:.3g} of max|plain| of "
+          f"channel_mix_plain (DL and UL mixes at B={SLICE_BATCH} and 64); "
+          + "; ".join(_fmt(r) for r in times) + f" on {card}")
+    return {"times": times, "max_err": max_err}
+
+
+def _launched_every_kernel_but_the_mix(launches: dict[str, int]) -> bool:
+    """Every counted kernel launched, but the channel mix, which only the
+    mixed slot runs, and that not at all."""
+    return launches["channel_mix"] == 0 and all(
+        n for k, n in launches.items() if k != "channel_mix")
+
+
 def _phase_split(label: str, llr: torch.Tensor, bg: int, zc: int,
                  n_used) -> str:
     """The decoder's per-CTA phase split from its diagnostic instance
@@ -621,8 +693,9 @@ def phase_slice(dev, card: str) -> dict:
     _check(bool(np.isfinite(sinrs).all())
            and abs(float(sinrs.mean()) - 20.0) < 1.5,
            f"mean SINR {float(sinrs.mean())} dB not within 1.5 dB of 20")
-    _check(all(launches.values()),
-           f"main path did not launch every kernel: {launches}")
+    _check(_launched_every_kernel_but_the_mix(launches),
+           f"main path did not launch every kernel but the channel mix: "
+           f"{launches}")
     us_per_slot = wall / (SLICE_SUBMITS * SLICE_BATCH) * 1e6
 
     # decoded bits equal the sent bits (direct call of the batched step)
@@ -771,9 +844,10 @@ def phase_mixed(dev, card: str) -> dict:
            and abs(float(sinrs.mean()) - 20.0) < 1.0,
            f"mean UL SINR {float(sinrs.mean())} dB not within 1.0 dB of 20")
     _check(launches == {"encoder": 4 * batches, "decoder": 2 * batches,
-                        "pusch_llr": 2 * batches},
-           f"expected 4 encoder, 2 decoder and 2 pusch_llr launches per "
-           f"batch over {batches} batches, got {launches}")
+                        "pusch_llr": 2 * batches,
+                        "channel_mix": 2 * batches},
+           f"expected 4 encoder, 2 decoder, 2 pusch_llr and 2 channel_mix "
+           f"launches per batch over {batches} batches, got {launches}")
     us_per_slot = wall / (MIXED_SUBMITS * SLICE_BATCH) * 1e6
 
     # how many slots pass each check (two more batches of the same function)
@@ -1045,7 +1119,7 @@ def phase_upper_phy(dev, card: str) -> dict:
             req if prach_rx is not None else dataclasses.replace(
                 req, prach_pdus=[]))).program
         per_replay = {"encoder": 0, "decoder": len(groups),
-                      "pusch_llr": len(req.pusch_pdus)}
+                      "pusch_llr": len(req.pusch_pdus), "channel_mix": 0}
         ran = {k: n - n0[k] for k, n in kernel_taps.launch_counts().items()}
         _check(prog.captured_launches == per_replay
                and ran == {k: n * (1 + new) for k, n in per_replay.items()},
@@ -1121,8 +1195,9 @@ def phase_upper_phy(dev, card: str) -> dict:
                            if f.endswith(("_bits", "_valid"))),
                        "UL slot 0: card and CPU UCI differ")
     launches = kernel_taps.launch_counts()
-    _check(all(launches.values()),
-           f"upper PHY run did not launch every kernel: {launches}")
+    _check(_launched_every_kernel_but_the_mix(launches),
+           f"upper PHY run did not launch every kernel but the channel "
+           f"mix: {launches}")
 
     # ---- each decode group of the full-mix slot 0: kernel vs plain on the
     # LLRs the program handed it (PUSCH A x34 n_used 35, PUSCH B x8 n_used 33)
@@ -1397,10 +1472,11 @@ def phase_mixed_variants(dev, card: str) -> dict:
                    f"{name}: mean UL SINR {float(sinrs.mean()):.2f} dB")
         _check(r["launches"] == {"encoder": 4 * r["batches"],
                                  "decoder": n_dec * r["batches"],
-                                 "pusch_llr": n_dec * r["batches"]},
+                                 "pusch_llr": n_dec * r["batches"],
+                                 "channel_mix": 2 * r["batches"]},
                f"{name}: launches {r['launches']} over {r['batches']} "
-               f"batches, expected 4 encoder, {n_dec} decoder and {n_dec} "
-               f"pusch_llr per batch")
+               f"batches, expected 4 encoder, {n_dec} decoder, {n_dec} "
+               f"pusch_llr and 2 channel_mix per batch")
         for k in launches:
             launches[k] += r["launches"][k]
         notes.append(f"{name} {r['us_per_slot']:.1f} us/slot (warmup "
@@ -1465,8 +1541,9 @@ def phase_harq(dev, card: str) -> dict:
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     launches = kernel_taps.launch_counts()
-    _check(launches == {"encoder": 8, "decoder": 6, "pusch_llr": 4},
-           f"HARQ batch launches {launches}, expected 8, 6 and 4")
+    _check(launches == {"encoder": 8, "decoder": 6, "pusch_llr": 4,
+                        "channel_mix": 4},
+           f"HARQ batch launches {launches}, expected 8, 6, 4 and 4")
     _check(all(not o["first_ok"].any() and not o["retx_ok"].any()
                and bool(o["combined_ok"].all()) for o in out.values()),
            f"HARQ verdicts at {chosen} dB: {out}")
@@ -1622,7 +1699,7 @@ def phase_lower(dev, card: str, u: dict) -> dict:
     torch.cuda.synchronize()
     launches = kernel_taps.launch_counts()
     _check(launches == {"encoder": 2 * (nslots + warmups), "decoder": nslots,
-                        "pusch_llr": nslots},
+                        "pusch_llr": nslots, "channel_mix": 0},
            f"lower-PHY run launches {launches} ({warmups} captures)")
     st = eng.tx_stats
     stats = (f"mean {float(st.mean_power_dbfs):.2f} dBFS, peak "
@@ -1660,7 +1737,8 @@ def _replay_kernels(pipe, batch, seed: int) -> dict:
     ran = {kind: sum(e.count for e in kern if tag in e.key)
            for kind, tag in (("encoder", "ldpc_encode_kernel"),
                              ("decoder", "ldpc_decode_kernel"),
-                             ("pusch_llr", "pusch_llr_kernel"))}
+                             ("pusch_llr", "pusch_llr_kernel"),
+                             ("channel_mix", "channel_mix_kernel"))}
     counted = pipe.program.captured_launches
     _check(ran == counted, f"the profiler saw {ran} kernels in one "
            f"replay, the capture counted {counted}")
@@ -1832,8 +1910,9 @@ def phase_scan(dev, card: str, cfg=None, shapes=SCAN_SHAPES,
         times = _scan_kernels(card, f"{label} B={b}", pipe(), payloads,
                               timed=b > SLICE_BATCH)
         torch.cuda.empty_cache()
-        runs.append(_scan_run(dev, card, label, pipe(), payloads,
-                              {"encoder": 4, "decoder": 2, "pusch_llr": 2},
+        per_batch = {"encoder": 4, "decoder": 2, "pusch_llr": 2,
+                     "channel_mix": 2}
+        runs.append(_scan_run(dev, card, label, pipe(), payloads, per_batch,
                               dispatches, 1.0) | {"times": times})
         del payloads
         torch.cuda.empty_cache()
@@ -1856,7 +1935,8 @@ def phase_flagship_scan(dev, card: str, cfg=None, b: int = SLICE_BATCH,
     _scan_kernels(card, f"{label} B={b}", pipe(), tb, timed=False)
     torch.cuda.empty_cache()
     return _scan_run(dev, card, label, pipe(), tb,
-                     {"encoder": 1, "decoder": 1, "pusch_llr": 1}, 4, 1.5)
+                     {"encoder": 1, "decoder": 1, "pusch_llr": 1,
+                      "channel_mix": 0}, 4, 1.5)
 
 
 def phase_accumulate(dev, card: str, cfg=None, b: int = SLICE_BATCH) -> dict:
@@ -1887,7 +1967,8 @@ def phase_accumulate(dev, card: str, cfg=None, b: int = SLICE_BATCH) -> dict:
     _check(ok == bool(oks.all()) and ok and n == 3 * b and rel <= 1e-6,
            f"accumulate ({ok}, {mean!r}, {n}) != drain ({bool(oks.all())}, "
            f"{sinrs.mean()!r}, {oks.size})")
-    _check(launches == {"encoder": 12, "decoder": 6, "pusch_llr": 6},
+    _check(launches == {"encoder": 12, "decoder": 6, "pusch_llr": 6,
+                        "channel_mix": 6},
            f"accumulate launches {launches}")
     print(f"[accumulate] {cfg.nof_prb}-PRB mixed slot, 3 eager submits of "
           f"{b}: fetch_accumulated ({ok}, {mean:.6f} dB, {n}) equals the "
@@ -2130,7 +2211,7 @@ def _app_run(dev, card: str, label: str, raw: dict) -> dict:
         rep = gnb.run()
         wall = time.perf_counter() - t0
         launches = kernel_taps.launch_counts()
-    _check(all(launches.values())
+    _check(_launched_every_kernel_but_the_mix(launches)
            and kernel_taps.tapped_launches(launches) == len(sink.eager),
            f"{label}: launches {launches}, {len(sink.eager)} tapped calls")
     times, counts = _app_launches(card, label, sink)
@@ -2549,7 +2630,7 @@ def phase_fronthaul(dev, card: str, car=None) -> dict:
             res.tb_bits[0].cpu().numpy(), data.transport_blocks[0])
         torch.cuda.synchronize()
         launches = kernel_taps.launch_counts()
-    _check(all(launches.values())
+    _check(_launched_every_kernel_but_the_mix(launches)
            and kernel_taps.tapped_launches(launches) == len(sink.eager),
            f"{label}: launches {launches}, {len(sink.eager)} tapped calls")
 
@@ -2613,11 +2694,12 @@ def _host_calls(dev, calls: list[dict]) -> list[dict]:
 
 def _rank_launches(label: str, results: list[dict]) -> dict:
     """The summed launch counts of mixed carrier steps, one per rank
-    result, each 4 encoder, 2 decoder (all tapped) and 2 pusch_llr
-    launches."""
+    result, each 4 encoder, 2 decoder (all tapped), 2 pusch_llr and 2
+    channel_mix launches."""
     launches = _no_launches()
     for res in results:
-        _check(res["launches"] == {"encoder": 4, "decoder": 2, "pusch_llr": 2}
+        _check(res["launches"] == {"encoder": 4, "decoder": 2, "pusch_llr": 2,
+                                   "channel_mix": 2}
                and len(res["calls"]) == 6, f"{label}: mixed carrier "
                f"launches {res['launches']}, {len(res['calls'])} tapped")
         for k in launches:
@@ -2683,7 +2765,8 @@ def phase_scale_out(dev, card: str, car=None, mixed=None) -> dict:
                 for k in mixed_launches}
     # the sharded step's first call warms up eagerly and captures: one
     # launch of each kernel from each
-    _check(a["launches"] == {"encoder": 2, "decoder": 2, "pusch_llr": 2},
+    _check(a["launches"] == {"encoder": 2, "decoder": 2, "pusch_llr": 2,
+                             "channel_mix": 0},
            f"scale-out nccl x1: flagship launches {a['launches']}")
     times_a, counts_a = _app_launches(card, "scale-out nccl x1",
                                       types.SimpleNamespace(
@@ -2797,13 +2880,14 @@ def phase_examples(dev, card: str, mixed_prb: int = 273,
             launches[k] += r["launches"][k]
     m = runs["mixed_slot_demo"]
     _check(m["res"]["device"] == str(dev) and bool(m["res"]["out"]["ok"])
-           and m["launches"] == {"encoder": 4, "decoder": 2, "pusch_llr": 2},
+           and m["launches"] == {"encoder": 4, "decoder": 2, "pusch_llr": 2,
+                                 "channel_mix": 2},
            f"mixed_slot_demo: ok {m['res']['out']['ok']} on "
            f"{m['res']['device']}, launches {m['launches']}")
     warm = _example("mixed_slot_demo warm", mixed_slot_demo.main, mixed_argv)
     _check(bool(warm["res"]["out"]["ok"])
            and warm["launches"] == {"encoder": 4, "decoder": 2,
-                                    "pusch_llr": 2},
+                                    "pusch_llr": 2, "channel_mix": 2},
            f"mixed_slot_demo warm: ok {warm['res']['out']['ok']}, launches "
            f"{warm['launches']}")
     t, warm["counts"] = _app_launches(card, "mixed_slot_demo warm",
@@ -2818,7 +2902,8 @@ def phase_examples(dev, card: str, mixed_prb: int = 273,
         _check(r["device"] == str(dev) and all(ok for ok, _, _ in r["slots"])
                and abs(float(np.mean(sinr)) - snr) < 1.5
                and runs[label]["launches"] == {"encoder": 8, "decoder": 8,
-                                               "pusch_llr": 8},
+                                               "pusch_llr": 8,
+                                               "channel_mix": 0},
                f"{label}: slots {r['slots']} on {r['device']}, launches "
                f"{runs[label]['launches']}")
     ssb_run = runs["radio_ssb"]["res"]
@@ -2866,9 +2951,10 @@ def _kernel_entry(name: str, kind: str, paths: list[dict],
                   max_err: float, timed: list[dict] | None = None) -> dict:
     """One kernels-JSON entry: launches of every driven path (each counted
     from 0 over its own run); times and bounds of one launch at each shape
-    of the timed phases (by default the same paths), added up.  No single PyTorch call computes an LDPC
-    encode, a layered min-sum decode or the PUSCH LLR stage, so library_ms
-    is null."""
+    of the timed phases (by default the same paths), added up.  No single
+    PyTorch call computes an LDPC encode, a layered min-sum decode or the
+    PUSCH LLR stage, so library_ms is null; the channel mix's plain version
+    is PyTorch's own einsum and adds, timed as plain_ms."""
     recs = [r for p in timed or paths for r in p["times"]
             if r["kind"] == kind]
     ms = sum(r["ms"] for r in recs)
@@ -2880,7 +2966,7 @@ def _kernel_entry(name: str, kind: str, paths: list[dict],
                                     "encoder_pallas.py:84",
                          "decoder": "srsran_project_23_5_tpu/ops/ldpc/"
                                     "decoder_pallas.py:195",
-                         "pusch_llr": None}[kind],
+                         "pusch_llr": None, "channel_mix": None}[kind],
             "launches": sum(p["launches"][kind] for p in paths),
             "max_abs_err": max_err, "ms": ms,
             "plain_ms": sum(r["plain_ms"] for r in recs),
@@ -2898,6 +2984,7 @@ def main() -> None:
     enc_err = phase_encoder(dev, card)
     dec_err = phase_decoder(dev, card)
     llr = phase_pusch_llr(dev, card)
+    mix = phase_channel_mix(dev, card)
     s = phase_slice(dev, card)
     phase_profile(card, "profile", s["pipe"], s["tb"], SLICE_BATCH)
     m = phase_mixed(dev, card)
@@ -2928,7 +3015,9 @@ def main() -> None:
                       max(dec_err, u["max_err"])),
         {**_kernel_entry("pusch_llr", "pusch_llr", paths, llr["max_err"],
                          timed=[llr]),
-         "evm_max_rel_gap": llr["evm_gap"]}]}))
+         "evm_max_rel_gap": llr["evm_gap"]},
+        _kernel_entry("channel_mix", "channel_mix", paths, mix["max_err"],
+                      timed=[mix])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -40,6 +40,7 @@ import torch
 
 from ..ops import modulation
 from ..ops import prach as prach_ops
+from ..ops.channel_mix import channel_mix, vecmix
 from ..ops.ldpc import segmentation
 from ..phy.lower import ofdm
 from ..phy.upper import csi_rs as csi_rs_proc
@@ -268,16 +269,6 @@ def _channels(device: torch.device):
                  for h in (H_UL, H_DL, H1_UL, H2_UL))
 
 
-def _mix2(h: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """[B, 2 out, ...] = h[2, 2] @ g[B, 2 in, ...]: one complex product."""
-    return torch.einsum("pq,bq...->bp...", h, g)
-
-
-def _vecmix(h: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """[B, 2, ...] = h[2] ⊗ g[B, ...]: one complex product."""
-    return h.reshape(1, 2, *(1,) * (g.dim() - 1)) * g[:, None]
-
-
 def _block_check(rx_blk: torch.Tensor, tx_blk: torch.Tensor,
                  seg: int = NRE) -> torch.Tensor:
     """Relative reconstruction error [B] of a contiguous grid block: one
@@ -371,7 +362,7 @@ def _prach_rx_ports(cfg: MixedSlotConfig,
                     device: torch.device) -> torch.Tensor:
     """The burst as the gNB's two rx ports see it through the flat
     channel: [2, slot_samples]."""
-    return _vecmix(_channels(device)[3], _prach_burst(cfg, device)[None])[0]
+    return vecmix(_channels(device)[3], _prach_burst(cfg, device)[None])[0]
 
 
 @functools.lru_cache(maxsize=8)
@@ -472,10 +463,11 @@ def _mixed_front(payloads: dict, noise_dl: torch.Tensor,
     grid_dl[:, 0] = grid_dl[:, 0] + g2d
 
     if selective:
-        bb_dl = _mix2(h_dl, tdl(ofdm.modulate_slot(grid_dl, cfg.mu,
-                                                   cfg.nfft)))
+        bb_dl = channel_mix(h_dl, tdl(ofdm.modulate_slot(grid_dl, cfg.mu,
+                                                         cfg.nfft)))
     else:
-        bb_dl = ofdm.modulate_slot(_mix2(h_dl, grid_dl), cfg.mu, cfg.nfft)
+        bb_dl = ofdm.modulate_slot(channel_mix(h_dl, grid_dl), cfg.mu,
+                                   cfg.nfft)
     ue_grid = ofdm.demodulate_slot(bb_dl + noise_dl, nsc, cfg.mu, cfg.nfft)
 
     # UE side: by default estimate + equalise each PDSCH as a receiver
@@ -535,11 +527,11 @@ def _mixed_front(payloads: dict, noise_dl: torch.Tensor,
         bb_u2 = mod(grid_u2)
         if cfg.prach_time_domain:
             bb_u2 = bb_u2 + _prach_burst(cfg, dev)
-        bb_ul = (_mix2(h_ul, tdl(mod(grid_u0))) + _vecmix(h1_ul, tdl(mod(
-            grid_u1))) + _vecmix(h2_ul, tdl(bb_u2)))
+        bb_ul = channel_mix(h_ul, tdl(mod(grid_u0)), (h1_ul, h2_ul),
+                            (tdl(mod(grid_u1)), tdl(bb_u2)))
     else:
-        combined = (_mix2(h_ul, grid_u0) + _vecmix(h1_ul, grid_u1)
-                    + _vecmix(h2_ul, grid_u2))
+        combined = channel_mix(h_ul, grid_u0, (h1_ul, h2_ul),
+                               (grid_u1, grid_u2))
         bb_ul = ofdm.modulate_slot(combined, cfg.mu, cfg.nfft)
         if cfg.prach_time_domain:
             bb_ul = bb_ul + _prach_rx_ports(cfg, dev)

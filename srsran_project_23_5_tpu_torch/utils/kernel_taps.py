@@ -12,8 +12,8 @@ each replay and copied out right after it, so every launch of the block is
 in ``sink.eager``.
 ``launch_counts`` reads the counters of every counted kernel wrapper
 (``graphs.KERNELS``: the two LDPC kernels, which are tapped, and the
-PUSCH LLR stage, which is not), which count kernel launches only (a CPU
-tensor runs the plain version).
+PUSCH LLR stage and the mixed slot's channel mix, which are not), which
+count kernel launches only (a CPU tensor runs the plain version).
 """
 from __future__ import annotations
 

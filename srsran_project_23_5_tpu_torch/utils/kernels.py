@@ -38,6 +38,8 @@ _SIGNATURES = {
     "pusch_llr": (_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I,
                   _I, _P, ctypes.c_float, ctypes.c_float, _P),
     "pusch_llr_chunks": (ctypes.c_longlong, _I, _I),
+    "channel_mix": (_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
+                    ctypes.c_longlong, _I, _P),
 }
 
 

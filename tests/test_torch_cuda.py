@@ -17,12 +17,13 @@ from srsran_project_23_5_tpu_torch.models import (fapi_carrier, gnb_flagship,
                                                   gnb_mixed)
 from srsran_project_23_5_tpu_torch.ops.ldpc import (decoder_cuda,
                                                     encoder_cuda, graphs)
-from srsran_project_23_5_tpu_torch.ops import modulation, prach
+from srsran_project_23_5_tpu_torch.ops import channel_mix, modulation, prach
 from srsran_project_23_5_tpu_torch.parallel import launch
 from srsran_project_23_5_tpu_torch.phy import pipeline
 from srsran_project_23_5_tpu_torch.phy.lower import lower_phy, prach_demod
 from srsran_project_23_5_tpu_torch.phy.upper import (pdcch, sch, slot_programs,
                                                      ssb, upper_phy)
+from srsran_project_23_5_tpu_torch.utils import graphs as capture
 from srsran_project_23_5_tpu_torch.utils import kernel_taps
 
 torch.set_num_threads(1)
@@ -292,6 +293,113 @@ def test_pusch_llr_kernel_in_a_graph(cuda, batch, nsym):
                              nv, sign, qm)
 
 
+# the 273-PRB mixed slot's grid, and an odd time-domain length (its slot
+# has 61440 samples)
+_MIX_TRAILS = {"grid": (14, 273 * 12), "time": (61441,)}
+
+
+def _mix_inputs(dev, seed, batch, trail, streams):
+    """Random (h [2, 2], g [batch, 2, *trail], columns [2], streams)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.complex64)
+    return (draw(2, 2), draw(batch, 2, *trail),
+            [draw(2) for _ in range(streams)],
+            [draw(batch, *trail) for _ in range(streams)])
+
+
+def _assert_mix_close(got, want):
+    """The kernel's mix against the plain expression on the card (cuBLAS
+    sums the einsum its own way): within 1e-6 of the largest output
+    magnitude, a few float32 steps; contiguous [B, 2, ...]."""
+    assert got.shape == want.shape and got.dtype == torch.complex64
+    assert got.is_contiguous()
+    if want.numel():
+        err = float((got - want).abs().max())
+        assert err <= 1e-6 * float(want.abs().max()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(_MIX_TRAILS))
+@pytest.mark.parametrize("streams", [0, 1, 2])
+@pytest.mark.parametrize("batch", [0, 1, 3, 8, 64])
+def test_channel_mix_kernel_matches_plain(cuda, batch, streams, shape):
+    """The channel mix kernel against ``channel_mix_plain`` at the mixed
+    slot's grid and an odd time-domain length, with 0, 1 and 2 single-port
+    streams; one launch a call, none for an empty batch."""
+    h, g, vecs, xs = _mix_inputs(cuda, 40 + batch + streams, batch,
+                                 _MIX_TRAILS[shape], streams)
+    before = channel_mix.channel_mix.launches
+    got = channel_mix.channel_mix(h, g, vecs, xs)
+    torch.cuda.synchronize()
+    assert channel_mix.channel_mix.launches == before + (batch > 0)
+    _assert_mix_close(got, channel_mix.channel_mix_plain(h, g, vecs, xs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["sliced", "permuted", "offset_g",
+                                    "offset_stream", "conj"])
+def test_channel_mix_kernel_takes_any_layout(cuda, layout):
+    """A sliced or permuted two-port input, a view one element past an
+    aligned start (8-B aligned only), a conjugate view: each mixes as the
+    plain expression does on the same views."""
+    batch, trail = 3, (14, 273 * 12)
+    h, g, vecs, xs = _mix_inputs(cuda, 50, batch, trail, 2)
+    if layout == "sliced":
+        g = _mix_inputs(cuda, 51, batch, (14, 273 * 12 + 4), 0)[1][..., 2:-2]
+    elif layout == "permuted":
+        g = g.transpose(0, 1).contiguous().transpose(0, 1)
+    elif layout == "offset_g":
+        g = torch.cat([g.new_zeros(1), g.reshape(-1)])[1:].view(g.shape)
+    elif layout == "offset_stream":
+        flat = torch.cat([g.new_zeros(1), xs[0].reshape(-1)])
+        xs = [flat[1:].view(xs[0].shape), xs[1]]
+    else:
+        g, xs = g.conj(), [xs[0], xs[1].conj()]
+    if layout.startswith("offset"):
+        assert (g.data_ptr() if layout == "offset_g"
+                else xs[0].data_ptr()) % 16 == 8
+    got = channel_mix.channel_mix(h, g, vecs, xs)
+    torch.cuda.synchronize()
+    _assert_mix_close(got, channel_mix.channel_mix_plain(h, g, vecs, xs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [8, 64])
+def test_channel_mix_kernel_in_a_program(cuda, batch):
+    """The slot's two mixes (DL: no stream; UL: two) captured in a
+    ``graphs.Program`` at the mixed slot's grid: the capture counts two
+    launches, each replay adds two, and a replay on new inputs equals the
+    eager call on them bit for bit and the plain expression within its
+    rounding."""
+    trail = _MIX_TRAILS["grid"]
+
+    def both(h, g, v1, v2, x1, x2):
+        return (channel_mix.channel_mix(h, g),
+                channel_mix.channel_mix(h, g, (v1, v2), (x1, x2)))
+
+    def inputs(seed):
+        h, g, vecs, xs = _mix_inputs(cuda, seed, batch, trail, 2)
+        return (h, g, *vecs, *xs)
+    prog = capture.GraphPool(cuda).program(both)
+    prog(*inputs(60))
+    assert prog.captured_launches["channel_mix"] == 2
+    new = inputs(61)
+    before = channel_mix.channel_mix.launches
+    for _ in range(2):
+        dl, ul = prog(*new)
+    torch.cuda.synchronize()
+    assert channel_mix.channel_mix.launches == before + 4
+    h, g, v1, v2, x1, x2 = new
+    want_dl, want_ul = prog.eager(*new)
+    assert torch.equal(dl, want_dl) and torch.equal(ul, want_ul)
+    _assert_mix_close(dl, channel_mix.channel_mix_plain(h, g))
+    _assert_mix_close(ul, channel_mix.channel_mix_plain(h, g, (v1, v2),
+                                                        (x1, x2)))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("zc", [320, 352, 384])
 @pytest.mark.parametrize("snr", [1.5, np.linspace(-1.0, 2.5, 24)])
@@ -454,10 +562,12 @@ def test_tiny_mixed_on_card_matches_cpu(cuda):
     g_pay = {k: v.to(cuda) for k, v in pay.items()}
     g_noise = [n.to(cuda) for n in noise]
     enc0, dec0 = encoder_cuda.encode.launches, decoder_cuda.decode.launches
+    mix0 = channel_mix.channel_mix.launches
     got = gnb_mixed.mixed_slot_batch(g_pay, *g_noise, cfg)
     torch.cuda.synchronize()
     assert encoder_cuda.encode.launches == enc0 + 4
     assert decoder_cuda.decode.launches == dec0 + 2
+    assert channel_mix.channel_mix.launches == mix0 + 2
     assert bool(want.ok.all())
     for f in _MIXED_FLAGS:
         assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
@@ -496,13 +606,15 @@ def _replay_vs_eager(pipe, batch, seed: int):
 
 
 @pytest.mark.cuda
-def test_mixed_scan_replay_equals_eager(cuda):
-    """The mixed slot's scan step captured as one CUDA graph: a replay
-    equals the eager K-batch loop on the same noise (the same kernels on
-    the same buffers), each replay counts the launches it captured, and a
-    replay on ×100 noise fails (the graph reads the static noise)."""
-    cfg = gnb_mixed.tiny_mixed()
-    b, k = 2, 2
+@pytest.mark.parametrize("b", [8, 64])
+def test_mixed_scan_replay_equals_eager(cuda, b):
+    """The 273-PRB mixed slot's scan step captured as one CUDA graph at the
+    cells' batch sizes, the channel mix kernel in it: a replay equals the
+    eager K-batch loop on the same noise (the same kernels on the same
+    buffers), each replay counts the launches it captured, and a replay on
+    ×100 noise fails (the graph reads the static noise)."""
+    cfg = gnb_mixed.default_mixed()
+    k = 2
     pipe = pipeline.SlotPipeline(
         pipeline.PipelineConfig(carrier=None, slots_per_batch=b,
                                 scan_batches=k),
@@ -511,18 +623,21 @@ def test_mixed_scan_replay_equals_eager(cuda):
     _, ok, mean = pipe.warmup_scan(pay)
     assert ok and abs(mean - 20.0) < 1.0
     assert pipe.program.captured_launches == {
-        "encoder": 4 * k, "decoder": 2 * k, "pusch_llr": 2 * k}
+        "encoder": 4 * k, "decoder": 2 * k, "pusch_llr": 2 * k,
+        "channel_mix": 2 * k}
     assert (pipe.graphs.captures, pipe.graphs.replays) == (1, 1)
     replay, eager = _replay_vs_eager(pipe, pay, 5)
     assert replay[0] and replay[0] == eager[0]
     assert abs(replay[1] - eager[1]) <= 1e-6 * abs(eager[1])
     enc0, dec0 = encoder_cuda.encode.launches, decoder_cuda.decode.launches
+    mix0 = channel_mix.channel_mix.launches
     for seed in (7, 9):
         pipe.submit_scan(pay, seed)
     all_ok, mean, n = pipe.fetch_accumulated()
     assert all_ok and n == 2 * k * b and abs(mean - 20.0) < 1.0
     assert encoder_cuda.encode.launches == enc0 + 2 * 4 * k
     assert decoder_cuda.decode.launches == dec0 + 2 * 2 * k
+    assert channel_mix.channel_mix.launches == mix0 + 2 * 2 * k
     # the noise is drawn into the buffers the graph reads
     assert [t.data_ptr() for t in pipe.scan_noise(5)] == [
         t.data_ptr() for t in pipe.program.inputs[1:]]
@@ -545,7 +660,8 @@ def test_flagship_scan_capture(cuda):
     _, ok, mean = pipe.warmup_scan(tb)
     assert ok and abs(mean - 20.0) < 1.5
     assert pipe.program.captured_launches == {"encoder": k, "decoder": k,
-                                              "pusch_llr": k}
+                                              "pusch_llr": k,
+                                              "channel_mix": 0}
     replay, eager = _replay_vs_eager(pipe, tb, 3)
     assert replay[0] and replay[0] == eager[0]
     assert abs(replay[1] - eager[1]) <= 1e-6 * abs(eager[1])
@@ -762,7 +878,8 @@ def test_upper_phy_replays_equal_eager(cuda):
                       cpu.process_dl_slot(req, data)))
         prog = phy.dl_programs.get(slot_programs.dl_signature(req)).program
         assert prog.captured_launches == {
-            "encoder": len(req.pdsch_pdus), "decoder": 0, "pusch_llr": 0}
+            "encoder": len(req.pdsch_pdus), "decoder": 0, "pusch_llr": 0,
+            "channel_mix": 0}
         assert encoder_cuda.encode.launches - e0 == len(req.pdsch_pdus) * (
             1 + phy.graphs.captures - c0)
         _assert_replay_equals_eager(prog, grids[-1][0])
@@ -776,7 +893,7 @@ def test_upper_phy_replays_equal_eager(cuda):
         groups = slot_programs.decode_groups(slot_programs.signature(ul)[0])
         assert prog.captured_launches == {
             "encoder": 0, "decoder": len(groups),
-            "pusch_llr": len(ul.pusch_pdus)}
+            "pusch_llr": len(ul.pusch_pdus), "channel_mix": 0}
         assert phy.graphs.replays == r0 + 1
         if slot >= 2:           # a replay of the graph slot - 2 captured
             assert decoder_cuda.decode.launches - d0 == len(groups)
@@ -935,7 +1052,8 @@ def test_sharded_flagship_nccl_world_of_one(cuda):
     assert float((res["sinr"] - res["sinr_ref"]).abs().max()) <= 1e-3
     # the step's first call: the eager warm-up's launch of each kernel,
     # then the capture's, which its replay adds
-    assert res["launches"] == {"encoder": 2, "decoder": 2, "pusch_llr": 2}
+    assert res["launches"] == {"encoder": 2, "decoder": 2, "pusch_llr": 2,
+                               "channel_mix": 0}
     assert len(res["calls"]) == 4 and res["mismatches"] == []
 
 
@@ -958,7 +1076,8 @@ def test_sharded_cell_edge_nccl_world_of_one(cuda):
     assert not res["bit_errors"].any()
     assert torch.equal(res["bit_errors"], res["bit_errors_ref"])
     assert float((res["sinr"] - res["sinr_ref"]).abs().max()) <= 1e-3
-    assert res["launches"] == {"encoder": 2, "decoder": 2, "pusch_llr": 2}
+    assert res["launches"] == {"encoder": 2, "decoder": 2, "pusch_llr": 2,
+                               "channel_mix": 0}
     assert len(res["calls"]) == 4 and res["mismatches"] == []
 
 
@@ -971,6 +1090,6 @@ def test_dryrun_two_gloo_ranks_share_the_card(cuda):
                                       cfg=gnb_mixed.tiny_mixed())
     for mixed, short, long_ in ranks:
         assert mixed["launches"] == {"encoder": 4, "decoder": 2,
-                                     "pusch_llr": 2}
+                                     "pusch_llr": 2, "channel_mix": 2}
         assert len(mixed["calls"]) == 6 and mixed["mismatches"] == []
         assert short["rel_err"] <= 1e-4 and long_["rel_err"] <= 1e-4

@@ -9,6 +9,11 @@ Inputs are made with numpy from a seed.  Bits, tables and hard decisions
 are exact; float ops agree within 1e-5 of max|ref| (float32 in two
 frameworks), the OFDM window within 4e-5 (FFT orders).
 """
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -23,7 +28,9 @@ from srsran_project_23_5_tpu.ops.ldpc import encoder, rate_match
 from srsran_project_23_5_tpu.phy.lower import ofdm
 from srsran_project_23_5_tpu.phy.upper import sch
 from srsran_project_23_5_tpu_torch import convert
+from srsran_project_23_5_tpu_torch.models import gnb_mixed as tgnb_mixed
 from srsran_project_23_5_tpu_torch.ops import bits as tbits
+from srsran_project_23_5_tpu_torch.ops import channel_mix as tchannel_mix
 from srsran_project_23_5_tpu_torch.ops import crc as tcrc
 from srsran_project_23_5_tpu_torch.ops import equalizer as tequalizer
 from srsran_project_23_5_tpu_torch.ops import modulation as tmodulation
@@ -225,6 +232,101 @@ def test_pusch_llr_refuses_what_does_not_fit(case):
         x, nv = x[None], nv[None]
     with pytest.raises(ValueError):
         tmodulation.pusch_llr(x, nv, sign, qm)
+
+
+def _mix_inputs(rng, batch: int, trail: tuple, streams: int):
+    """Random (h [2, 2], g [batch, 2, *trail], columns, streams)."""
+    h = torch.from_numpy(_cplx(rng, (2, 2)))
+    g = torch.from_numpy(_cplx(rng, (batch, 2, *trail)))
+    vecs = [torch.from_numpy(_cplx(rng, (2,))) for _ in range(streams)]
+    xs = [torch.from_numpy(_cplx(rng, (batch, *trail)))
+          for _ in range(streams)]
+    return h, g, vecs, xs
+
+
+# the tiny mixed slot's grid and its time-domain slot (15360 samples; one
+# more makes the length odd)
+_MIX_SHAPES = {"grid": (2, (14, tgnb_mixed.tiny_mixed().nsc)),
+               "time": (3, (tgnb_mixed.tiny_mixed().slot_samples + 1,))}
+
+
+@pytest.mark.parametrize("streams", [0, 1, 2])
+@pytest.mark.parametrize("shape", sorted(_MIX_SHAPES))
+def test_channel_mix_on_the_cpu_is_the_slots_expression(shape, streams):
+    """On the CPU ``channel_mix`` is the expression the mixed slot used
+    before the kernel (``_mix2`` plus a ``_vecmix`` per stream), bit for
+    bit, with the slot's own channels and with random ones; no launch."""
+    rng = np.random.default_rng(72 + streams)
+    batch, trail = _MIX_SHAPES[shape]
+    h_ul, _, h1_ul, h2_ul = tgnb_mixed._channels(torch.device("cpu"))
+    rand = _mix_inputs(rng, batch, trail, streams)
+    before = tchannel_mix.channel_mix.launches
+    for h, vecs in ((h_ul, (h1_ul, h2_ul)[:streams]), (rand[0], rand[2])):
+        g, xs = rand[1], rand[3]
+        want = torch.einsum("pq,bq...->bp...", h, g)
+        for v, x in zip(vecs, xs):
+            want = want + v.reshape(1, 2, *(1,) * (x.dim() - 1)) * x[:, None]
+        assert torch.equal(tchannel_mix.channel_mix(h, g, vecs, xs), want)
+    assert tchannel_mix.channel_mix.launches == before
+
+
+@pytest.mark.parametrize("selective", [False, True], ids=["flat", "tdl"])
+def test_mixed_front_counts_the_plain_mix_per_call(traced, selective):
+    """The tiny mixed slot's front half on the CPU mixes its DL and its UL
+    through ``channel_mix``: ``mixed.mix_plain`` ticks once per call (two a
+    batch, flat and TDL), ``mixed.mix_kernel`` never."""
+    cfg = tgnb_mixed.tiny_mixed()
+    if selective:
+        cfg = tgnb_mixed.tdl_channel(cfg)
+    pay = tgnb_mixed.make_payloads(cfg, np.random.default_rng(73), 1, "cpu")
+    noise = tgnb_mixed.draw_noise(cfg, 1, torch.Generator().manual_seed(73))
+    tgnb_mixed._mixed_front(pay, *noise, cfg)
+    assert traced.counts["mixed.mix_plain"] == 2
+    assert "mixed.mix_kernel" not in traced.counts
+
+
+@pytest.mark.parametrize("case", ["three_streams", "column_count", "h_shape",
+                                  "ports", "stream_shape", "column_shape"])
+def test_channel_mix_refuses_what_does_not_fit(case):
+    rng = np.random.default_rng(74)
+    h, g, vecs, xs = _mix_inputs(rng, 2, (5,), 2)
+    if case == "three_streams":
+        vecs, xs = vecs + vecs[:1], xs + xs[:1]
+    elif case == "column_count":
+        vecs = vecs[:1]
+    elif case == "h_shape":
+        h = h[:, :1]
+    elif case == "ports":
+        g = torch.cat([g, g[:, :1]], dim=1)
+    elif case == "stream_shape":
+        xs = [xs[0][:, :-1], xs[1]]
+    else:
+        vecs = [vecs[0][None], vecs[1]]
+    with pytest.raises(ValueError):
+        tchannel_mix.channel_mix(h, g, vecs, xs)
+
+
+def test_channel_mix_imports_with_no_cuda():
+    """``ops/channel_mix`` imports, registers its wrapper and runs its
+    plain path in an interpreter that sees no CUDA device, building and
+    loading no kernel library."""
+    code = (
+        "import torch\n"
+        "from srsran_project_23_5_tpu_torch.ops import channel_mix as m\n"
+        "from srsran_project_23_5_tpu_torch.utils import graphs, kernels\n"
+        "assert not torch.cuda.is_available()\n"
+        "assert graphs.KERNELS['channel_mix'] is m.channel_mix\n"
+        "h = torch.eye(2, dtype=torch.complex64)\n"
+        "g = torch.ones((1, 2, 3), dtype=torch.complex64)\n"
+        "assert torch.equal(m.channel_mix(h, g), g)\n"
+        "assert kernels.library.cache_info().currsize == 0\n"
+        "print('ok')\n")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-c", code],
+                         cwd=Path(__file__).resolve().parents[1], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
 
 
 @pytest.mark.parametrize("scale", [1.0, 0.37, 4.0])

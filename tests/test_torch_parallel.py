@@ -316,7 +316,7 @@ def test_dryrun_multichip_two_ranks(dryrun_two):
     for rank in dryrun_two["ranks"]:
         mixed, short, long_ = rank
         assert mixed["launches"] == {"encoder": 0, "decoder": 0,
-                                     "pusch_llr": 0}
+                                     "pusch_llr": 0, "channel_mix": 0}
         assert len(mixed["calls"]) == 6 and mixed["step_ms"] > 0
         assert len(mixed["step_times"]) == tentry.TIMED_STEPS
         assert mixed["peak_reserved"] is None

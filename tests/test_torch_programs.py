@@ -91,6 +91,9 @@ def test_graphs_imports_no_ops():
             "from srsran_project_23_5_tpu_torch.phy.upper import sch\n"
             "assert sorted(graphs.KERNELS) == ['decoder', 'encoder', "
             "'pusch_llr']\n"
+            "from srsran_project_23_5_tpu_torch.models import gnb_mixed\n"
+            "assert sorted(graphs.KERNELS) == ['channel_mix', 'decoder', "
+            "'encoder', 'pusch_llr']\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
