@@ -91,13 +91,18 @@ Phases, one line each:
    bit-exact against ``decode_plain`` first and timed) and the grid
    PRACH; every slot ok under the JAX slot's gates,
    µs/slot each;
-13. harq — ``harq_retx_batch`` at 273 PRB, 8 slots: a sweep of snr1 over
-   11-14 dB, the first point where every first and retx verdict fails and
-   every combination passes for both UEs, driven once with the counts
-   reset (8 encoder, 6 decoder, 4 pusch_llr and 4 channel_mix launches);
-   the full-graph decodes of the combined LLRs (BG1 Z=384 x136, Z=352
-   x64) bit-exact against ``decode_plain``, timed, with CTAs per SM,
-   waves and the phase split;
+13. harq — HARQ pairs at 273 PRB: ``harq_pair_batch`` swept over an
+   uplink SNR of 11-14 dB in 0.5 dB steps (the downlink at 20 dB), 64
+   pairs a batch, 32 batches on each of 3 seeds a point; the widest run
+   of points where no first transmission passes and no combination fails
+   (at least 1 dB) is printed, and its midpoint is snr1; at snr1, 8 pairs
+   a batch, ``harq_pair_batch`` (8 encoder, 4 decoder, 4 pusch_llr and 4
+   channel_mix launches, every pair ok) and ``harq_retx_batch`` (8, 6, 4
+   and 4; first and retx fail, the combination passes), each driven once
+   with the counts reset; the full-graph decodes of the combined LLRs at
+   8 pairs (BG1 Z=384 x136, Z=352 x64) and 64 (x1088, x512) bit-exact
+   against ``decode_plain``, timed, with CTAs per SM, waves and (x136,
+   x64) the phase split;
 14. receivers — on the flat mixed slot's UE grid (port 0):
    ``pdcch_blind_receive`` for each RNTI over CCEs {0, 4, 8, 12} at AL4
    (only the true candidate passes, with the sent DCI) and
@@ -1502,77 +1507,146 @@ def phase_mixed_variants(dev, card: str) -> dict:
     return {"launches": launches, "times": times}
 
 
-HARQ_SNRS = (11.0, 12.0, 12.5, 13.0, 13.5, 14.0)
+# the snr1 sweep of the HARQ pairs: 11-14 dB in 0.5 dB steps, HARQ_SWEEP
+# batches of 64 pairs on each of HARQ_SEEDS (6144 pairs a point)
+HARQ_SNRS = tuple(11.0 + 0.5 * i for i in range(7))
+HARQ_SWEEP = 32
+HARQ_SEEDS = (30, 31, 32)
+HARQ_PAIRS = 64
+
+
+def harq_sweep(dev, cfg, snrs, batches: int, seeds, pairs: int) -> tuple:
+    """``harq_pair_batch`` over the uplink SNRs `snrs` (the downlink at
+    ``cfg.snr_db``), `batches` batches of `pairs` pairs on each seed →
+    (per point {snr, pairs, first_passed, combined_failed, not_ok, false}
+    in TBs and pairs, ``false`` the pairs with each other verdict false in
+    either slot, the widest run of points where no first transmission
+    passed and no combination failed as (low, high) or None)."""
+    rows = []
+    others = ("dl0_ok", "dl1_ok", "pucch_ok", "prach_ok", "dci_crc_ok")
+    for snr in snrs:
+        first = comb = bad = n = 0
+        why = dict.fromkeys(others, 0)
+        for seed in seeds:
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            pay = gnb_mixed.make_payloads(cfg, np.random.default_rng(seed),
+                                          pairs, dev)
+            for _ in range(batches):
+                res = gnb_mixed.harq_pair_batch(pay, gnb_mixed.draw_harq_noise(
+                    cfg, pairs, gen, snr), cfg)
+                first += int(sum(v.sum() for v in res.first_ok.values()))
+                comb += int(sum((~v).sum() for v in res.combined_ok.values()))
+                bad += int((~res.ok).sum())
+                for f in others:
+                    why[f] += int((~(getattr(res.first, f)
+                                     & getattr(res.second, f))).sum())
+                n += pairs
+        rows.append({"snr": snr, "pairs": n, "first_passed": first,
+                     "combined_failed": comb, "not_ok": bad,
+                     "false": {f: k for f, k in why.items() if k}})
+    best, run = None, []
+    for r in rows + [None]:
+        if r is not None and not r["first_passed"] and not r["combined_failed"]:
+            run.append(r["snr"])
+            continue
+        if run and (best is None or run[-1] - run[0] > best[1] - best[0]):
+            best = (run[0], run[-1])
+        run = []
+    return rows, best
 
 
 def phase_harq(dev, card: str) -> dict:
-    """harq_retx_batch at 273 PRB: the snr1 sweep, the driven run at the
-    chosen point, and the full-graph decodes of its combined LLRs."""
+    """HARQ pairs at 273 PRB: the snr1 sweep of ``harq_pair_batch`` and the
+    interval it sets; ``harq_pair_batch`` and ``harq_retx_batch`` driven
+    at its midpoint with their launches counted; the full-graph decodes of
+    the combined LLRs at 8 and at 64 pairs a batch held against
+    ``decode_plain`` and timed."""
     cfg = gnb_mixed.default_mixed()
+    t0 = time.perf_counter()
+    rows, best = harq_sweep(dev, cfg, HARQ_SNRS, HARQ_SWEEP, HARQ_SEEDS,
+                            HARQ_PAIRS)
+    sweep_s = time.perf_counter() - t0
+    sweep = "; ".join(
+        f"{r['snr']:g} dB: first passed {r['first_passed']}, combined failed "
+        f"{r['combined_failed']} of {2 * r['pairs']} TBs, pairs not ok "
+        f"{r['not_ok']} of {r['pairs']} {r['false'] or ''}" for r in rows)
+    _check(best is not None and best[1] - best[0] >= 1.0,
+           f"no interval of 1 dB where every first transmission fails and "
+           f"every combination passes: {sweep}")
+    chosen = 0.5 * (best[0] + best[1])
+    print(f"[harq] snr1 sweep of harq_pair_batch, {HARQ_PAIRS} pairs a batch "
+          f"x {HARQ_SWEEP} batches x seeds {HARQ_SEEDS} ({sweep_s:.1f} s): "
+          f"{sweep}; interval {best[0]:g}-{best[1]:g} dB "
+          f"({best[1] - best[0]:g} dB), snr1 = its midpoint {chosen:g} dB "
+          f"on {card}")
+    launches = dict.fromkeys(kernel_taps.launch_counts(), 0)
+    # the pair, as the cell runs it, at 8 pairs a batch
+    gen = torch.Generator(device=dev).manual_seed(30)
     pay = gnb_mixed.make_payloads(cfg, np.random.default_rng(30),
                                   SLICE_BATCH, dev)
-    gen = torch.Generator(device=dev).manual_seed(30)
-
-    def noise(snr1: float):
-        c1 = dataclasses.replace(cfg, snr_db=snr1)
-        return (*gnb_mixed.draw_noise(c1, SLICE_BATCH, gen),
-                *gnb_mixed.draw_noise(c1, SLICE_BATCH, gen))
-
-    sweep, chosen = [], None
-    for snr1 in HARQ_SNRS:
-        out = gnb_mixed.harq_retx_batch(pay, noise(snr1), cfg, snr1,
-                                        device=dev)
-        rates = {ue: {k: float(v.float().mean()) for k, v in o.items()}
-                 for ue, o in out.items()}
-        sweep.append(f"{snr1:g} dB " + " ".join(
-            f"{ue} first {r['first_ok']:.2f} retx {r['retx_ok']:.2f} "
-            f"comb {r['combined_ok']:.2f}" for ue, r in rates.items()))
-        if chosen is None and all(
-                r["first_ok"] == 0 and r["retx_ok"] == 0
-                and r["combined_ok"] == 1 for r in rates.values()):
-            chosen = snr1
-    _check(chosen is not None, f"no snr1 where first and retx fail and the "
-           f"combination passes: {sweep}")
-    nz = noise(chosen)
+    nz = gnb_mixed.draw_harq_noise(cfg, SLICE_BATCH, gen, chosen)
+    kernel_taps.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pair = gnb_mixed.harq_pair_batch(pay, nz, cfg)
+    torch.cuda.synchronize()
+    pair_ms = (time.perf_counter() - t0) * 1e3
+    got = kernel_taps.launch_counts()
+    _check(got == {"encoder": 8, "decoder": 4, "pusch_llr": 4,
+                   "channel_mix": 4},
+           f"HARQ pair launches {got}, expected 8, 4, 4 and 4")
+    _check(bool(pair.ok.all()), f"HARQ pairs at {chosen} dB: "
+           f"first {pair.first_ok}, combined {pair.combined_ok}")
+    launches = {k: launches[k] + n for k, n in got.items()}
+    # the retransmission batch, the JAX parity path: the downlink at snr1
+    nz = (*gnb_mixed.draw_noise(dataclasses.replace(cfg, snr_db=chosen),
+                                SLICE_BATCH, gen),
+          *gnb_mixed.draw_noise(dataclasses.replace(cfg, snr_db=chosen),
+                                SLICE_BATCH, gen))
     kernel_taps.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = gnb_mixed.harq_retx_batch(pay, nz, cfg, chosen, device=dev)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    launches = kernel_taps.launch_counts()
-    _check(launches == {"encoder": 8, "decoder": 6, "pusch_llr": 4,
-                        "channel_mix": 4},
-           f"HARQ batch launches {launches}, expected 8, 6, 4 and 4")
+    got = kernel_taps.launch_counts()
+    _check(got == {"encoder": 8, "decoder": 6, "pusch_llr": 4,
+                   "channel_mix": 4},
+           f"HARQ batch launches {got}, expected 8, 6, 4 and 4")
     _check(all(not o["first_ok"].any() and not o["retx_ok"].any()
                and bool(o["combined_ok"].all()) for o in out.values()),
            f"HARQ verdicts at {chosen} dB: {out}")
-    # the combined buffers: full-graph decodes, kernel vs plain, timed
-    cfg1 = dataclasses.replace(cfg, snr_db=chosen)
-    cfg2 = dataclasses.replace(
-        cfg1, pusch0=dataclasses.replace(cfg.pusch0, rv=2),
-        pusch1=dataclasses.replace(cfg.pusch1, rv=2))
-    f1 = gnb_mixed._mixed_front(pay, nz[0], nz[1], cfg1)
-    f2 = gnb_mixed._mixed_front(pay, nz[2], nz[3], cfg2)
+    launches = {k: launches[k] + n for k, n in got.items()}
+    # the combined buffers: full-graph decodes, kernel vs plain, timed, at
+    # 8 pairs (the retransmission batch's) and 64 (the cell's)
     times, splits = [], []
-    for name, sh in (("u0", cfg.pusch0), ("u1", cfg.pusch1)):
-        seg = sh.segments
-        comb = f1[name].llr_full + f2[name].llr_full
-        llr = comb.reshape(-1, comb.shape[-1]).contiguous()
-        rec = _timed_decoder(f"HARQ combined {name}", llr, seg.base_graph,
-                             seg.lifting_size, None, reps=50)
-        times.append(rec)
-        splits.append(_phase_split(rec["shape"], llr, seg.base_graph,
-                                   seg.lifting_size, None))
-    print(f"[harq] 273-PRB mixed slot x{SLICE_BATCH}, snr1 sweep: "
-          f"{'; '.join(sweep)}; chosen {chosen:g} dB: first and retx fail, "
-          f"the combination passes for both UEs, {wall_ms:.1f} ms per "
-          f"batch, launches {launches}; "
+    for bsz in (SLICE_BATCH, HARQ_PAIRS):
+        p = gnb_mixed.make_payloads(cfg, np.random.default_rng(33), bsz, dev)
+        f1, f2, cfg2 = gnb_mixed._harq_fronts(p, gnb_mixed.draw_harq_noise(
+            cfg, bsz, gen, chosen), cfg, 2)
+        for name, sh in (("u0", cfg.pusch0), ("u1", cfg.pusch1)):
+            seg = sh.segments
+            comb = f1[name].llr_full + f2[name].llr_full
+            llr = comb.reshape(-1, comb.shape[-1]).contiguous()
+            rec = _timed_decoder(f"HARQ combined {name}, {bsz} pairs", llr,
+                                 seg.base_graph, seg.lifting_size, None,
+                                 reps=50 if bsz == SLICE_BATCH else 10)
+            times.append(rec)
+            if bsz == SLICE_BATCH:
+                splits.append(_phase_split(rec["shape"], llr, seg.base_graph,
+                                           seg.lifting_size, None))
+        del f1, f2
+    print(f"[harq] 273-PRB mixed slot x{SLICE_BATCH} at snr1 {chosen:g} dB: "
+          f"harq_pair_batch {pair_ms:.1f} ms a batch of pairs, every first "
+          f"transmission failed and every combination passed; "
+          f"harq_retx_batch: first and retx fail, the combination passes "
+          f"for both UEs, {wall_ms:.1f} ms per batch; launches {launches}; "
           + "; ".join(f"{_fmt(r)}, {r['ctas_per_sm']} CTA/SM, {r['waves']} "
                       f"waves" for r in times) + f" on {card}")
     print(f"[harq] full-graph phase split per CTA: {'; '.join(splits)} on "
           f"{card}")
-    return {"launches": launches, "times": times}
+    return {"launches": launches, "times": times, "snr1": chosen,
+            "interval": best, "sweep": rows}
 
 
 def phase_receivers(dev, card: str, u: dict) -> None:

@@ -25,9 +25,13 @@ second) with standard deviation ``noise_sigma(cfg)`` per sample.  Each UE's
 codeblocks of the whole batch are encoded in one LDPC encoder launch and
 decoded in one decoder launch.  Options: the PRACH occasion on the grid
 instead of in the time domain, the UE-side LDPC decode of both PDSCH
-instead of the symbol check, the downlink checks off; and
-``harq_retx_batch``, a failed first transmission, its rv=2
-retransmission and their soft combination, on the same front half.
+instead of the symbol check, the downlink checks off.  HARQ:
+``harq_pair_batch`` runs a batch of pairs as a gNB receives them (a first
+transmission at rv=0 that fails, its rv=2 retransmission, the softbuffer
+combine and one full-graph decode of the sum), each transmission a full
+mixed slot, and ``harq_batch_fn_for_pipeline`` hands it to
+``SlotPipeline``; ``harq_retx_batch`` is the same pair's PUSCHs alone,
+with the retransmission also decoded alone.
 """
 from __future__ import annotations
 
@@ -44,6 +48,7 @@ from ..ops.channel_mix import channel_mix, vecmix
 from ..ops.ldpc import segmentation
 from ..phy.lower import ofdm
 from ..phy.upper import csi_rs as csi_rs_proc
+from ..phy.upper import harq
 from ..phy.upper import pdcch as pdcch_proc
 from ..phy.upper import pucch as pucch_proc
 from ..phy.upper import sch
@@ -52,6 +57,7 @@ from ..ran import numerology, tbs as tbs_mod
 from ..ran.constants import NRE
 from ..testing.channels import normalize_taps, tdl_apply
 from ..utils.device import resolve as resolve_device
+from ..utils.tracing import tracer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -588,6 +594,25 @@ def _tb_ok(dec: tuple[torch.Tensor, torch.Tensor], sh: sch.ShConfig,
     return tb_crc & okc.all(dim=-1) & torch.all(tb == tb_ref, dim=-1)
 
 
+def _control_ok(front: dict, cfg: MixedSlotConfig) -> torch.Tensor:
+    """[B] verdict of the slot's channels other than the four shared
+    channels: PDCCH (per REG and the DCI), SSB, PSS, PUCCH and PRACH."""
+    # ssb_match = 1 − relative error, whose floor at the SNR is
+    # 10^(−snr/10): gate at 5× the floor.  Under delay spread the per-PRB
+    # flat fit leaves the tap rotation within a PRB as residual, the PDCCH
+    # check loses a little, and the flat PSS correlation decorrelates (a
+    # UE's timing search would absorb it): those gates widen.
+    floor = 5.0 * 10 ** (-cfg.snr_db / 10)
+    if cfg.tdl_delays:
+        floor = max(floor, 0.05)
+    pdcch_gate = 0.95 if cfg.tdl_delays else 0.99
+    pss_gate = 0.6 if cfg.tdl_delays else 0.8
+    return ((front["pdcch_match"] > pdcch_gate) & front["dci_crc_ok"]
+            & (front["ssb_match"] > 1.0 - floor)
+            & (front["pss_corr"] > pss_gate)
+            & front["pucch_ok"] & front["prach_ok"])
+
+
 def _mixed_back(front: dict, payloads: dict, cfg: MixedSlotConfig,
                 dec: dict) -> MixedSlotResult:
     ul0_ok = _tb_ok(dec["u0"], cfg.pusch0, payloads["tb_ul0"])
@@ -599,21 +624,8 @@ def _mixed_back(front: dict, payloads: dict, cfg: MixedSlotConfig,
         dl0_ok, dl1_ok = front["dl0_pre"], front["dl1_pre"]
     sinr_u0 = _db(1.0 / torch.clamp(front["u0"].post_noise_var, min=1e-12))
     sinr_u1 = _db(1.0 / torch.clamp(front["u1"].post_noise_var, min=1e-12))
-    # ssb_match = 1 − relative error, whose floor at the SNR is
-    # 10^(−snr/10): gate at 5× the floor.  Under delay spread the per-PRB
-    # flat fit leaves the tap rotation within a PRB as residual, the PDCCH
-    # check loses a little, and the flat PSS correlation decorrelates (a
-    # UE's timing search would absorb it): those gates widen.
-    floor = 5.0 * 10 ** (-cfg.snr_db / 10)
-    if cfg.tdl_delays:
-        floor = max(floor, 0.05)
-    pdcch_gate = 0.95 if cfg.tdl_delays else 0.99
-    pss_gate = 0.6 if cfg.tdl_delays else 0.8
     ok = (ul0_ok & ul1_ok & dl0_ok & dl1_ok
-          & (front["pdcch_match"] > pdcch_gate) & front["dci_crc_ok"]
-          & (front["ssb_match"] > 1.0 - floor)
-          & (front["pss_corr"] > pss_gate)
-          & front["pucch_ok"] & front["prach_ok"])
+          & _control_ok(front, cfg))
     return MixedSlotResult(
         ok=ok, sinr_ul_db=0.5 * (sinr_u0 + sinr_u1),
         ul0_ok=ul0_ok, ul1_ok=ul1_ok,
@@ -651,12 +663,19 @@ def mixed_slot_batch(payloads: dict, noise_dl: torch.Tensor,
     decoder launch of B·C rows (both PUSCH, and both PDSCH with
     ue_decode_dl).
     """
-    front = _mixed_front(payloads, noise_dl, noise_ul, cfg)
-    bsz = noise_dl.shape[0]
+    front = _with_dci(_mixed_front(payloads, noise_dl, noise_ul, cfg),
+                      payloads, cfg)
+    return _mixed_back(front, payloads, cfg, decode_front(front, cfg))
+
+
+def _with_dci(front: dict, payloads: dict, cfg: MixedSlotConfig) -> dict:
+    """The front half with its batch's DCI verdict: the full re-check of
+    slot 0, held for the batch."""
+    bsz = front["prach_ok"].shape[0]
     front["dci_crc_ok"] = _dci_recheck(front["pdcch_llr"][0],
                                        payloads["dci_dl"][0],
                                        cfg).expand(bsz)
-    return _mixed_back(front, payloads, cfg, decode_front(front, cfg))
+    return front
 
 
 def decode_names(cfg: MixedSlotConfig) -> list[tuple[str, sch.ShConfig]]:
@@ -687,15 +706,112 @@ def mixed_slot(payloads: dict, noise_dl: torch.Tensor,
                               for f in dataclasses.fields(res)})
 
 
+# --------------------------------------------------------------------------
+# HARQ: a first transmission at rv=0, its retransmission, the soft combine
+# --------------------------------------------------------------------------
+def draw_harq_noise(cfg: MixedSlotConfig, batch: int,
+                    generator: torch.Generator, ul_snr_db: float
+                    ) -> tuple[torch.Tensor, ...]:
+    """The channel noise of `batch` HARQ pairs, drawn in one call on the
+    generator's device: (downlink, uplink) of the first transmission, then
+    of the retransmission, each [batch, 2, slot_samples] complex64; the
+    downlink at ``cfg.snr_db``, the uplink at `ul_snr_db`."""
+    nz = torch.randn((4, batch, 2, 2, cfg.slot_samples), generator=generator,
+                     device=generator.device, dtype=torch.float32)
+    sd_dl = noise_sigma(cfg) / math.sqrt(2.0)
+    sd_ul = noise_sigma(dataclasses.replace(cfg, snr_db=ul_snr_db)
+                        ) / math.sqrt(2.0)
+    return tuple(torch.complex(nz[i, :, 0], nz[i, :, 1]) * sd
+                 for i, sd in enumerate((sd_dl, sd_ul, sd_dl, sd_ul)))
+
+
+def _harq_fronts(payloads: dict, noise: tuple[torch.Tensor, ...],
+                 cfg: MixedSlotConfig, retx_rv: int
+                 ) -> tuple[dict, dict, MixedSlotConfig]:
+    """Both transmissions' front halves, the first with both PUSCH at rv=0,
+    the second at `retx_rv` → (front 1, front 2, the second's config)."""
+    cfg2 = dataclasses.replace(
+        cfg, pusch0=dataclasses.replace(cfg.pusch0, rv=retx_rv),
+        pusch1=dataclasses.replace(cfg.pusch1, rv=retx_rv))
+    return (_mixed_front(payloads, noise[0], noise[1], cfg),
+            _mixed_front(payloads, noise[2], noise[3], cfg2), cfg2)
+
+
+def _combined_decode(first: dict, second: dict, cfg2: MixedSlotConfig
+                     ) -> dict:
+    """Each PUSCH's softbuffer (the first transmission's full-buffer LLRs)
+    combined with the retransmission's and decoded on the full graph →
+    {"u0"/"u1": (codeblock bits [B, C, K], ok [B, C])}."""
+    return {name: sch.decode_cbs(
+                harq.soft_combine(second[name].llr_full,
+                                  first[name].llr_full),
+                sh, cfg2.nof_ldpc_iterations)
+            for name, sh in (("u0", cfg2.pusch0), ("u1", cfg2.pusch1))}
+
+
+@dataclasses.dataclass
+class HarqPairResult:
+    """Verdicts of a batch of B HARQ pairs.  ``first`` and ``second`` are
+    the two transmissions' mixed slots: the first's PUSCH verdicts are
+    those of its own rv=0 decode, the second's those of the combined
+    decode (so ``second.ul0_ok`` is UE0's ``combined_ok``)."""
+    ok: torch.Tensor              # [B] the pair as the link is set up
+    first: MixedSlotResult
+    second: MixedSlotResult
+    combined: dict                # "u0"/"u1": (bits [B, C, K], ok [B, C])
+
+    @property
+    def first_ok(self) -> dict:
+        return {"u0": self.first.ul0_ok, "u1": self.first.ul1_ok}
+
+    @property
+    def combined_ok(self) -> dict:
+        return {"u0": self.second.ul0_ok, "u1": self.second.ul1_ok}
+
+
+def harq_pair_batch(payloads: dict, noise: tuple[torch.Tensor, ...],
+                    cfg: MixedSlotConfig, retx_rv: int = 2
+                    ) -> HarqPairResult:
+    """A batch of B HARQ pairs as a gNB receives them, both transmissions
+    full mixed slots on the same payloads {name: [B, n] int8}: the first
+    with both PUSCH at rv=0, decoded on the truncated graph, its full-buffer
+    LLRs kept as each PUSCH's softbuffer; the retransmission at `retx_rv`,
+    its LLRs combined with the softbuffer (``harq.soft_combine``) and the
+    sum decoded on the full graph.  noise: (downlink, uplink) of the first
+    transmission, then of the second, each [B, 2, slot_samples] (e.g.
+    ``draw_harq_noise``).
+
+    ``ok`` holds when every first transmission fails, every combination
+    passes and every other verdict of both slots holds: the link set below
+    the first transmission's cliff.  The tracer's span ``harq.pair`` covers
+    the batch."""
+    with tracer.span("harq.pair", "harq"):
+        f1, f2, cfg2 = _harq_fronts(payloads, noise, cfg, retx_rv)
+        first = _mixed_back(_with_dci(f1, payloads, cfg), payloads, cfg,
+                            decode_front(f1, cfg))
+        combined = _combined_decode(f1, f2, cfg2)
+        dec2 = {name: sch.decode_cbs(f2[name].llr_full, sh,
+                                     cfg.nof_ldpc_iterations)
+                for name, sh in decode_names(cfg2) if name not in combined}
+        second = _mixed_back(_with_dci(f2, payloads, cfg2), payloads, cfg2,
+                             {**dec2, **combined})
+        ok = (~first.ul0_ok & ~first.ul1_ok & first.dl0_ok & first.dl1_ok
+              & _control_ok(f1, cfg) & second.ok)
+        return HarqPairResult(ok=ok, first=first, second=second,
+                              combined=combined)
+
+
 def harq_retx_batch(payloads: dict, noise: tuple[torch.Tensor, ...],
                     cfg: MixedSlotConfig, snr1_db: float, retx_rv: int = 2,
                     device: torch.device | str | None = None) -> dict:
-    """HARQ retransmission on the mixed-slot path: the first transmission
-    carries both PUSCH at rv=0 at snr1_db, below the MCS cliff; the second
-    retransmits the same TBs at rv=retx_rv; the gNB adds the two
-    transmissions' full circular-buffer LLRs (the softbuffer combine) and
-    decodes the sum.  rv>0 spans wrap the buffer, so the retransmission
-    and the combination decode the full graph.
+    """HARQ retransmission on the mixed-slot path, held against the JAX
+    package: the first transmission carries both PUSCH at rv=0 at snr1_db,
+    below the MCS cliff; the second retransmits the same TBs at rv=retx_rv;
+    the gNB adds the two transmissions' full circular-buffer LLRs (the
+    softbuffer combine) and decodes the sum on the full graph.  Besides,
+    the retransmission is decoded alone (a check that it fails, which a
+    gNB does not run).  The fronts and the combined decode are
+    ``harq_pair_batch``'s.
 
     noise: (downlink, uplink) of the first transmission, then of the
     second, each [B, 2, slot_samples] with ``noise_sigma`` at snr1_db.
@@ -706,24 +822,34 @@ def harq_retx_batch(payloads: dict, noise: tuple[torch.Tensor, ...],
     payloads = {k: v.to(dev) for k, v in payloads.items()}
     noise = [n.to(dev) for n in noise]
     cfg1 = dataclasses.replace(cfg, snr_db=snr1_db)
-    cfg2 = dataclasses.replace(
-        cfg1, pusch0=dataclasses.replace(cfg.pusch0, rv=retx_rv),
-        pusch1=dataclasses.replace(cfg.pusch1, rv=retx_rv))
-    f1 = _mixed_front(payloads, noise[0], noise[1], cfg1)
-    f2 = _mixed_front(payloads, noise[2], noise[3], cfg2)
+    f1, f2, cfg2 = _harq_fronts(payloads, noise, cfg1, retx_rv)
+    combined = _combined_decode(f1, f2, cfg2)
+    iters = cfg.nof_ldpc_iterations
     out = {}
-    for name, sh, key in (("u0", cfg.pusch0, "tb_ul0"),
-                          ("u1", cfg.pusch1, "tb_ul1")):
-        la, lb = f1[name].llr_full, f2[name].llr_full           # [B, C, N]
-
-        def tb_ok(llr: torch.Tensor, rv: int) -> torch.Tensor:
-            sh_d = dataclasses.replace(sh, rv=rv)
-            return _tb_ok(sch.decode_cbs(llr, sh_d, cfg.nof_ldpc_iterations),
-                          sh, payloads[key])
-
-        out[name] = {"first_ok": tb_ok(la, 0), "retx_ok": tb_ok(lb, retx_rv),
-                     "combined_ok": tb_ok(la + lb, retx_rv)}
+    for name, sh1, sh2, key in (("u0", cfg1.pusch0, cfg2.pusch0, "tb_ul0"),
+                                ("u1", cfg1.pusch1, cfg2.pusch1, "tb_ul1")):
+        sent = payloads[key]
+        out[name] = {
+            "first_ok": _tb_ok(sch.decode_cbs(f1[name].llr_full, sh1, iters),
+                               sh1, sent),
+            "retx_ok": _tb_ok(sch.decode_cbs(f2[name].llr_full, sh2, iters),
+                              sh1, sent),
+            "combined_ok": _tb_ok(combined[name], sh1, sent)}
     return out
+
+
+def harq_batch_fn_for_pipeline(cfg: MixedSlotConfig,
+                               ul_snr_db: float) -> tuple:
+    """The ``SlotPipeline`` batch contract for HARQ pairs, a (run, draw)
+    pair: run (payloads {name: [B, n]}, the four noise tensors of
+    ``draw_harq_noise``) → (ok [B], sinr_ul_db [B], the mean of both
+    slots'); draw is ``draw_harq_noise`` with the uplink at `ul_snr_db`.
+    A pipeline slot is one pair (two mixed slots)."""
+    def run(payloads: dict, *noise: torch.Tensor):
+        res = harq_pair_batch(payloads, noise, cfg)
+        return res.ok, 0.5 * (res.first.sinr_ul_db + res.second.sinr_ul_db)
+    return run, lambda batch, generator: draw_harq_noise(
+        cfg, batch, generator, ul_snr_db)
 
 
 def mixed_slot_dict(payloads: dict, noise_dl: torch.Tensor,

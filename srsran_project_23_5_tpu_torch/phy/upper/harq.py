@@ -5,13 +5,31 @@ rx_softbuffer_pool): per-(rnti, harq) buffers of full-codeword LLRs,
 reserved on the first transmission, combined on retransmission, released on
 CRC pass or on slot expiry.  The buffers are tensors on the device of the
 receiver ([C, N_full*Zc] float32 per process); the pool never moves them to
-the host.
+the host.  ``soft_combine`` is the combine itself, on the device: the
+upper PHY's slot programs and the mixed slot's HARQ pairs both call it.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
+
+from ...utils.tracing import tracer
+
+
+def soft_combine(llr: torch.Tensor, prior: torch.Tensor,
+                 new_data: torch.Tensor | None = None) -> torch.Tensor:
+    """A transmission's full-buffer LLRs [..., C, N] combined with the
+    softbuffer `prior` of the same shape: ``where(new_data, llr, llr +
+    prior)``, or ``llr + prior`` for a retransmission (`new_data` None).
+    The tracer counts ``harq.combined``, the TBs (the leading elements) of
+    a retransmission; a `new_data` flag on the device is not known to the
+    host, so such a call counts nothing."""
+    if new_data is None:
+        tracer.add("harq.combined", math.prod(llr.shape[:-2]))
+        return llr + prior
+    return torch.where(new_data, llr, llr + prior)
 
 
 @dataclasses.dataclass

@@ -30,6 +30,7 @@ from ...ops import dmrs, equalizer, estimator, gold, modulation, precoding
 from ...ops.ldpc import decoder_cuda, encoder_cuda, rate_match, segmentation
 from ...ran import ldpc_params, vrb_prb
 from ...ran.constants import NRE
+from ...utils.tracing import tracer
 from . import ulsch
 
 # half the minimum distance of each constellation's axis
@@ -638,12 +639,17 @@ def used_blocks(cfg: ShConfig) -> int | None:
 def decode_cbs(llr_full: torch.Tensor, cfg: ShConfig,
                nof_ldpc_iterations: int = 6
                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """[B, C, N] LLRs → (bits [B, C, K], ok [B, C]) in one decoder call."""
+    """[B, C, N] LLRs → (bits [B, C, K], ok [B, C]) in one decoder call.
+    The tracer counts ``ldpc.full_graph``, the codeblock rows decoded on
+    the full graph (``used_blocks`` None)."""
     seg = cfg.segments
     bsz, c, n = llr_full.shape
+    used = used_blocks(cfg)
+    if used is None:
+        tracer.add("ldpc.full_graph", bsz * c)
     bits, ok = decoder_cuda.decode(
         llr_full.reshape(bsz * c, n), seg.base_graph, seg.lifting_size,
-        nof_iterations=nof_ldpc_iterations, nof_used_blocks=used_blocks(cfg))
+        nof_iterations=nof_ldpc_iterations, nof_used_blocks=used)
     return bits.reshape(bsz, c, -1), ok.reshape(bsz, c)
 
 

@@ -38,6 +38,7 @@ from ...ops import prach as prach_ops
 from ...ops.ldpc import decoder_cuda
 from ...utils import graphs
 from . import csi_rs as csi_rs_proc
+from . import harq
 from . import pdcch as pdcch_proc
 from . import pucch as pucch_proc
 from . import sch
@@ -262,7 +263,7 @@ class UlSlotPrograms:
             # ---- PUSCH front halves + HARQ combine on the device
             demods = [sch.pusch_demodulate(rx, cfg, tx_pilots=pil)
                       for cfg, pil in zip(pusch_cfgs, pilots)]
-            llrs = [torch.where(nd, d.llr_full[0], d.llr_full[0] + p)
+            llrs = [harq.soft_combine(d.llr_full[0], p, nd)
                     for d, p, nd in zip(demods, priors, new_data)]
             # ---- one decoder launch per (BG, Zc, N, span) group
             decoded = _decode_grouped(llrs, groups, iters)

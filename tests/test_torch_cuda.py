@@ -21,8 +21,9 @@ from srsran_project_23_5_tpu_torch.ops import channel_mix, modulation, prach
 from srsran_project_23_5_tpu_torch.parallel import launch
 from srsran_project_23_5_tpu_torch.phy import pipeline
 from srsran_project_23_5_tpu_torch.phy.lower import lower_phy, prach_demod
-from srsran_project_23_5_tpu_torch.phy.upper import (pdcch, sch, slot_programs,
-                                                     ssb, upper_phy)
+from srsran_project_23_5_tpu_torch.phy.upper import (harq, pdcch, sch,
+                                                     slot_programs, ssb,
+                                                     upper_phy)
 from srsran_project_23_5_tpu_torch.utils import graphs as capture
 from srsran_project_23_5_tpu_torch.utils import kernel_taps
 
@@ -734,6 +735,100 @@ def test_harq_retx_batch_on_card_matches_cpu(cuda):
             assert torch.equal(got[ue][v].cpu(), want[ue][v]), (ue, v)
         assert want[ue]["combined_ok"].all()
         assert not (want[ue]["first_ok"].any() or want[ue]["retx_ok"].any())
+
+
+# the uplink SNR of the harq273.b64 cell (ranbench/configs/harq273.json)
+HARQ_SNR1 = 12.5
+
+
+@pytest.fixture(scope="module")
+def harq_buffers():
+    """The combined buffers of 64 HARQ pairs of the 273-PRB mixed slot at
+    the cell's uplink SNR, as ``harq_pair_batch`` forms them: {"u0"
+    (BG1 Z=384, x1088), "u1" (Z=352, x512)} [rows, N] float32 on the
+    card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = gnb_mixed.default_mixed()
+    pay = gnb_mixed.make_payloads(cfg, np.random.default_rng(23), 64, dev)
+    noise = gnb_mixed.draw_harq_noise(
+        cfg, 64, torch.Generator(device=dev).manual_seed(23), HARQ_SNR1)
+    f1, f2, _ = gnb_mixed._harq_fronts(pay, noise, cfg, 2)
+    out = {}
+    for name in ("u0", "u1"):
+        comb = harq.soft_combine(f2[name].llr_full, f1[name].llr_full)
+        out[name] = comb.reshape(-1, comb.shape[-1]).contiguous()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,zc,rows", [("u0", 384, 1088),
+                                          ("u1", 352, 512)])
+def test_decoder_kernel_full_graph_harq_cell_rows(cuda, harq_buffers, name,
+                                                  zc, rows):
+    """The harq273.b64 cell's full-graph launches (one CTA an SM: x1088 is
+    9 waves on 132 SMs) on the cell's combined buffers: bit-exact against
+    the plain version, eagerly and replayed from a captured graph, and
+    every codeblock converges."""
+    llr = harq_buffers[name]
+    assert llr.shape[0] == rows
+    w_bits, w_ok = decoder_cuda.decode_plain(llr, 1, zc)
+    bits, ok = decoder_cuda.decode(llr, 1, zc)
+    prog = capture.GraphPool(cuda).program(
+        lambda x: decoder_cuda.decode(x, 1, zc))
+    prog(llr)                                     # warm-up and capture
+    r_bits, r_ok = (t.clone() for t in prog(llr))  # a replay
+    torch.cuda.synchronize()
+    assert torch.equal(ok, w_ok) and torch.equal(bits, w_bits)
+    assert torch.equal(r_ok, w_ok) and torch.equal(r_bits, w_bits)
+    assert bool(w_ok.all())
+    assert decoder_cuda.ctas_per_sm(1, zc, None) == 1
+
+
+def _pair_tree(res):
+    return {"ok": res.ok, "first": vars(res.first),
+            "second": vars(res.second), "combined": res.combined}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [8, 64])
+def test_harq_pair_program_replay_equals_eager(cuda, b):
+    """``harq_pair_batch`` as one ``graphs.Program`` at 8 and 64 pairs a
+    batch: a replay on new noise equals the eager run on the same inputs,
+    every pair ok; the capture ticks ``ldpc.full_graph`` with the batch's
+    full-graph rows (1088 + 512 at 64 pairs) and ``harq.combined`` with
+    2·b TBs in each of its two passes (eager warm-up, capture), a replay
+    nothing; 4 decoder launches a replay."""
+    from srsran_project_23_5_tpu_torch.utils.tracing import tracer
+    cfg = gnb_mixed.default_mixed()
+    pay = gnb_mixed.make_payloads(cfg, np.random.default_rng(b), b, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(b)
+    prog = capture.GraphPool(cuda).program(lambda p, nz: _pair_tree(
+        gnb_mixed.harq_pair_batch(p, nz, cfg)))
+    tracer.clear()
+    tracer.enabled = True
+    try:
+        prog(pay, gnb_mixed.draw_harq_noise(cfg, b, gen, HARQ_SNR1))
+        captured = [r for r in tracer.records() if r.name == "harq.pair"]
+        dec0 = decoder_cuda.decode.launches
+        out = prog(pay, gnb_mixed.draw_harq_noise(cfg, b, gen, HARQ_SNR1))
+        torch.cuda.synchronize()
+        replayed = [r for r in tracer.records() if r.name == "harq.pair"]
+    finally:
+        tracer.enabled = False
+    rows = b * (cfg.pusch0.segments.nof_segments
+                + cfg.pusch1.segments.nof_segments)
+    assert rows == (1088 + 512) * b // 64
+    assert len(captured) == 2 and replayed == captured
+    for r in captured:
+        assert r.counts["ldpc.full_graph"] == rows
+        assert r.counts["harq.combined"] == 2 * b
+    assert prog.captured_launches["decoder"] == 4
+    assert decoder_cuda.decode.launches == dec0 + 4
+    assert bool(out["ok"].all())
+    _assert_replay_equals_eager(prog)
 
 
 @pytest.mark.cuda
